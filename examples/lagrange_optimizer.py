@@ -1,6 +1,6 @@
 """Non-linear QoI post-processing: the XGC Lagrange optimizer.
 
-TPU-native counterpart of the reference's lambda example
+A JAX counterpart of the reference's lambda example
 (reference: examples/lambda/LagrangeOptimizer.cpp:142-540 —
 computeLagrangeParameters): after lossy reconstruction of an XGC ion
 distribution f(plane, node, vx, vy), enforce EXACT preservation of the
@@ -16,7 +16,7 @@ moments, Hessian H[a,b] = sum f_rec * V_a * V_b * exp(-K); reference
 loop at LagrangeOptimizer.cpp:312-515, maxIter=50, unconverged nodes
 fall back to lambda=0).
 
-The TPU translation replaces the reference's OpenMP-parallel per-node
+The translation replaces the reference's OpenMP-parallel per-node
 while(1) loop with ONE jitted program: all (plane, node) systems run as
 a vmapped batch, the Newton iteration is a lax.fori_loop with per-node
 convergence freezing (compiler-friendly fixed trip count instead of

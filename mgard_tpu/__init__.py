@@ -1,11 +1,11 @@
-"""mgard-tpu: TPU-native MGARD — error-bounded lossy compression and
+"""mgard-tpu: MGARD in JAX — error-bounded lossy compression and
 progressive refactoring of scientific data on structured grids.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of
+A from-scratch JAX/XLA re-design with the capabilities of
 JieyangChen7/MGARD (see SURVEY.md): multilevel decomposition, error-bound
 driven levelwise quantization, device entropy coding, self-describing format,
-domain decomposition sharded over TPU meshes, and MDR progressive bitplane
-refactoring.
+domain decomposition sharded over device meshes, and MDR progressive
+bitplane refactoring.
 """
 
 import os as _os
@@ -18,14 +18,17 @@ _jax.config.update("jax_enable_x64", True)
 
 # Persistent compilation cache: repeated compressions of the same shape are
 # compile-free across processes (plays the role of the reference's
-# CompressorCache + AutoTuner tables persisting across runs).
-_cache_dir = _os.environ.get(
-    "MGARD_TPU_COMPILE_CACHE", _os.path.expanduser("~/.cache/mgard_tpu_xla")
+# CompressorCache + AutoTuner tables persisting across runs). Where
+# JAX_COMPILATION_CACHE_DIR is set, JAX reads it itself and the directory is
+# left alone; otherwise the cache lives at one fixed path inside the
+# checkout, next to the package (listed in .gitignore). JAX's own
+# jax_enable_compilation_cache setting turns it off.
+CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))), ".xla_cache"
 )
-if _cache_dir != "0":
-    _os.makedirs(_cache_dir, exist_ok=True)
-    _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+_jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 from .config import Config  # noqa: E402
 from .dtypes import (  # noqa: E402

@@ -1,9 +1,9 @@
 """Runtime configuration.
 
 Mirrors the reference Config knobs (reference: include/mgard-x/Config/Config.h:10-46
-with defaults from src/mgard-x/Config/Config.cpp:33-68), dropping GPU-specific
-fields that have no TPU meaning (dev_type/dev_id: JAX owns device placement)
-and adding TPU-native ones (mesh/sharding controls).
+with defaults from src/mgard-x/Config/Config.cpp:33-68), dropping the
+device-selection fields (dev_type/dev_id: JAX owns device placement) and
+adding this framework's own (mesh/sharding controls, codec knobs).
 """
 
 from __future__ import annotations
@@ -27,18 +27,18 @@ _UNLIMITED = 2**63 - 1
 class Config:
     # --- compression pipeline selection -------------------------------
     compressor: compressor_type = compressor_type.MGARD
-    # TPU-native defaults = the flagship benched pipeline (r3 VERDICT #4:
-    # "default Config != benched config"): Hybrid decomposition (blockwise
-    # 8^3 local refactor fused in one Pallas pass + global remainder,
-    # reference HybridHierarchyCompressor) with the BFP width-sorted prefix
-    # codec. Finite-s / non-raw-backend requests transparently fall back to
-    # the MultiDim transform with identical certified constants, and every
+    # Defaults = the flagship pipeline: Hybrid decomposition (blockwise
+    # 8^3 local refactor + global remainder, reference
+    # HybridHierarchyCompressor) with the BFP width-sorted prefix codec.
+    # Finite-s / non-raw-backend requests transparently fall back to the
+    # MultiDim transform with identical certified constants, and every
     # choice is recorded in the self-describing header.
     decomposition: decomposition_type = decomposition_type.Hybrid
-    # The reference defaults to (GPU-)Huffman (Config.cpp:33-68); on TPU
-    # data-dependent gathers make table-driven Huffman the slow path, so the
-    # gather-free sorted-prefix codec is the default. Huffman/BFX remain
-    # selectable and the format is self-describing either way.
+    # The reference defaults to (GPU-)Huffman (Config.cpp:33-68); this
+    # framework was first built for a device on which data-dependent
+    # gathers made table-driven Huffman the slow path, so the gather-light
+    # sorted-prefix codec is the default. Huffman/BFX remain selectable and
+    # the format is self-describing either way.
     lossless: lossless_type = lossless_type.BFP
 
     # float64 fast path: when the L-inf error budget covers the exact
@@ -46,9 +46,9 @@ class Config:
     # through the flagship hybrid pipeline with the cast error deducted
     # from the tolerance — the certified end-to-end bound is unchanged.
     # The reference instantiates double natively everywhere
-    # (reference: include/compress_x.hpp:31-159); on TPU f64 is an
-    # emulated f32 pair, so the demotion IS the native design. Tight
-    # tolerances (budget < 4x cast error) keep the full f64 transform.
+    # (reference: include/compress_x.hpp:31-159); the demotion halves the
+    # bytes every stage moves. Tight tolerances (budget < 4x cast error)
+    # keep the full f64 transform.
     f64_demote: bool = True
 
     # --- quantization / entropy knobs ---------------------------------
@@ -77,8 +77,8 @@ class Config:
     # --- pipelining ------------------------------------------------------
     # Overlap subdomain i+1's device dispatch with subdomain i's host
     # serialization (reference: GPUPipelines.hpp double buffering).
-    # (The reference's auto_pin_host_buffers / cpu_mode knobs have no TPU
-    # meaning: JAX owns host staging and XLA owns host threading.)
+    # (The reference's auto_pin_host_buffers / cpu_mode knobs have no
+    # counterpart: JAX owns host staging and XLA owns host threading.)
     prefetch: bool = True
 
     # --- MDR -------------------------------------------------------------
@@ -116,14 +116,14 @@ class Config:
     # --- misc -------------------------------------------------------------
     log_level: int = 0
 
-    # --- TPU-native additions ----------------------------------------------
+    # --- additions of this framework -----------------------------------------
     # Maximum number of outliers the fixed-size device capture buffer holds,
     # as a fraction of total elements. Compression falls back to a larger
     # buffer (re-trace) if exceeded.
     outlier_capacity_ratio: float = 1.0 / 64.0
     # Name of the mesh axis subdomains are sharded over (parallel pipeline).
     mesh_axis: str = "subdomain"
-    # BFX superblock size in 32-symbol blocks (None = platform default;
+    # BFX superblock size in 32-symbol blocks (None = size-based default;
     # set by utils.autotuner.apply_autotune from the persistent table).
     bfx_sb_blocks: Optional[int] = None
     # BFP (lossless/bfp.py) base plane count (0 = auto from the first
@@ -132,19 +132,12 @@ class Config:
     # lengths are stored as 4-bit nibbles in the sidecar).
     bfp_base_planes: int = 0
     bfp_resid_planes: int = 0
-    # Opt-in fused transform+pack path (hybrid front-end flag 2): ONE
-    # Pallas kernel per direction, each (8,128,Z) tile = one BFP
-    # superblock. Measured at parity with the two-stage v2 pipeline at
-    # 512^3 (55.1 vs 56.9 GB/s combined — v2 already hides the payload's
-    # HBM round trip behind the MXU permutation work), so v2 stays the
-    # default; the v3 stream format is fully supported either way.
-    hybrid_fused_pack: bool = False
-    # BFP superblock size in 32-symbol blocks (None = platform default;
+    # BFP superblock size in 32-symbol blocks (None = size-based default;
     # set by utils.autotuner.apply_autotune from the persistent table).
     bfp_sb_blocks: Optional[int] = None
     # BFP sort-chunk size in blocks (0 = default 8). Bigger chunks make the
-    # sort-gather rows wider (the dominant encode cost) but coarsen the
-    # chunk-max width, trading ratio for speed. Recorded in each blob.
+    # sort-gather rows wider and fewer but coarsen the chunk-max width,
+    # trading ratio for speed. Recorded in each blob.
     bfp_chunk: int = 0
     # Consult the persistent autotuner table automatically on compress()
     # (the reference's AutoTuningTable lookup per kernel launch,

@@ -47,18 +47,23 @@ def estimate_memory_footprint(shape: Sequence[int], dtype) -> int:
     return n * (4 * elem + 4 + 6 * 4)
 
 
-def available_device_memory(default: int = 12 * 2**30) -> int:
-    try:
-        import jax
+def available_device_memory(cpu_default: int = 12 * 2**30) -> int:
+    """Free memory of the first device (90% of bytes_limit - bytes_in_use).
+    The CPU backend reports no limit, so it gets an explicit
+    ``cpu_default``; an accelerator that reports none is an error."""
+    import jax
 
-        dev = jax.devices()[0]
-        stats = dev.memory_stats()
-        if stats and "bytes_limit" in stats:
-            free = stats["bytes_limit"] - stats.get("bytes_in_use", 0)
-            return int(free * 0.9)
-    except Exception:
-        pass
-    return default
+    dev = jax.devices()[0]
+    if dev.platform == "cpu":
+        return cpu_default
+    stats = dev.memory_stats()
+    if not stats or "bytes_limit" not in stats:
+        raise RuntimeError(
+            f"{dev.platform} device {dev.device_kind!r} reports no "
+            "bytes_limit in memory_stats()"
+        )
+    free = stats["bytes_limit"] - stats.get("bytes_in_use", 0)
+    return int(free * 0.9)
 
 
 def calc_local_abs_tol(

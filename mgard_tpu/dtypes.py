@@ -3,7 +3,7 @@
 Mirrors the reference's public type vocabulary
 (/root/reference/include/mgard-x/Utilities/Types.h:19-88) so users of the
 reference find the same knobs, while the values live in idiomatic Python
-enums. The quantized integer stream is int32 on-device (TPU-native choice;
+enums. The quantized integer stream is int32 on-device (this framework's choice;
 the reference uses int64, but in-range symbols always fit a Huffman
 dictionary < 2^31 so int32 halves HBM traffic); outliers are widened to
 int64 at capture time for parity with the reference's QUANTIZED_INT.
@@ -57,13 +57,13 @@ class lossless_type(enum.IntEnum):
     LZ4 = 5
     ZeroRLE_Rans = 6
     SymbolRans = 7
-    # TPU-native extension: block fixed-width bitplane codec (lossless/bfx.py)
+    # extension: block fixed-width bitplane codec (lossless/bfx.py)
     # with in-stream wide-value support (no outlier side-channel needed).
     BFX = 8
     BFX_Zstd = 9
-    # TPU-native v3: dense base planes + narrow residual tree + exception
-    # spill (lossless/bfp.py) — same symbol model as BFX at ~5x less VPU
-    # condensation work.
+    # extension: dense base planes + width-sorted residual prefixes +
+    # exception spill (lossless/bfp.py) — same symbol model as BFX without
+    # its condensation tree.
     BFP = 10
     BFP_Zstd = 11
 

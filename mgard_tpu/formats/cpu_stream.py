@@ -17,7 +17,7 @@ Everything here follows the reference's *algorithms* re-derived from the
 math (1D FEM mass/prolongation/restriction stencils as dense per-axis
 operators applied as tensor products in numpy); nothing is translated
 line-by-line. This is a host-side interop path for reading
-reference-written files, not a performance path — the TPU pipeline is
+reference-written files, not a performance path — the device pipeline is
 `highlevel.compress`/`decompress` on this framework's own format.
 
 Fidelity notes:

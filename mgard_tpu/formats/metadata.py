@@ -111,19 +111,14 @@ class Metadata:
     # the stored (ABS) tolerance certifies the final double output.
     demoted: bool = False
 
-    # NOT a wire field: the minimum minor file version the stream's
-    # features actually require (0 unless a 2.1+ section — hybrid flag 2 —
-    # is written). Stamping the minimum keeps older readers able to parse
-    # everything they understand, despite the minor forward-gate below.
-    wire_minor: int = 0
-
     def serialize(self) -> bytes:
         body = bytearray()
-        # a demoted stream decodes to the wrong dtype on pre-2.2 readers
-        # (they ignore the trailing flag byte), so it must carry minor >= 2
-        # and be cleanly rejected there; plain streams keep the minimum
-        minor = max(int(self.wire_minor), 2 if self.demoted else 0)
-        minor = min(minor, FILE_VERSION[1])
+        # stamp the minimum minor version the stream's features need, so
+        # older readers parse everything they understand despite the minor
+        # forward-gate: a demoted stream decodes to the wrong dtype on
+        # pre-2.2 readers (they ignore the trailing flag byte), so it must
+        # carry minor 2 and be cleanly rejected there; plain streams 0
+        minor = min(2 if self.demoted else 0, FILE_VERSION[1])
         body += struct.pack(
             "<3B3B", *SOFTWARE_VERSION,
             FILE_VERSION[0], minor, FILE_VERSION[2],

@@ -1,6 +1,6 @@
 """Multigrid hierarchy precompute.
 
-TPU-native re-design of the reference Hierarchy<D,T,DeviceType>
+A re-design of the reference Hierarchy<D,T,DeviceType>
 (reference: include/mgard-x/Hierarchy/Hierarchy.hpp:142-349 and
 include/mgard-x/Hierarchy/Hierarchy.h:17-102): all per-level scalar tables
 (level shapes, node spacing `dist`, interpolation ratios, pre-factored

@@ -136,15 +136,15 @@ def _raw_codec(lt: lossless_type):
 
 def _effective_raw_lt(lt: lossless_type, n: int) -> lossless_type:
     """BFP pays its chunk-max width granularity for superblock-scale
-    sorted-prefix packing; below the Pallas engagement size it has no
-    throughput edge over BFX and loses ratio, so small streams fall back.
-    The per-section backend id (lossless/registry.py) keeps every blob
-    self-describing, so this is invisible to decompression."""
+    sorted-prefix packing; below SB_LARGE_MIN superblock blocks it loses
+    ratio against BFX, so small streams fall back. The per-section backend
+    id (lossless/registry.py) keeps every blob self-describing, so this is
+    invisible to decompression."""
     from .lossless import bfp as _bfp
 
-    if lt == lossless_type.BFP and n < _bfp.SB_PALLAS_MIN * 32:
+    if lt == lossless_type.BFP and n < _bfp.SB_LARGE_MIN * 32:
         return lossless_type.BFX
-    if lt == lossless_type.BFP_Zstd and n < _bfp.SB_PALLAS_MIN * 32:
+    if lt == lossless_type.BFP_Zstd and n < _bfp.SB_LARGE_MIN * 32:
         return lossless_type.BFX_Zstd
     return lt
 
@@ -225,16 +225,6 @@ def _decompress_core_sym(sym, quantizers, hier, orthogonal, s_inf, single_dim=Fa
 # Hybrid (blockwise 8^3 local + global remainder) cores
 # (reference: HybridHierarchyCompressor.hpp; see ops/hybrid.py)
 # ----------------------------------------------------------------------
-def _hybrid_fused_ok(padded, dtype) -> bool:
-    from .ops.hybrid import _tile_shape
-
-    return (
-        jax.default_backend() == "tpu"
-        and np.dtype(dtype) == np.float32
-        and _tile_shape(padded) is not None
-    )
-
-
 def _hybrid_quantizer(abs_tol: float, l_total: int) -> float:
     # hierarchical s=inf rule with the hybrid level count
     # (reference: LinearQuantization.hpp:234-298)
@@ -243,9 +233,9 @@ def _hybrid_quantizer(abs_tol: float, l_total: int) -> float:
 
 def _pick_v2_chunk(padded, config: Config) -> int:
     """Sort-chunk size for the v2 front-end: an explicit Config.bfp_chunk
-    wins; otherwise the largest C whose (C*32)-element chunk rows tile the
-    last axis exactly. C=16 (1 KB gather rows) measures ~1.4x faster than
-    C=8 on the sort-gather-bound encode at 512^3 and costs ~0.3% ratio."""
+    wins; otherwise the largest C (up to 16) whose (C*32)-element chunk
+    rows tile the last axis exactly: larger chunks mean fewer, wider
+    sort-gather rows at a small ratio cost."""
     C = int(getattr(config, "bfp_chunk", 0) or 0)
     if C:
         return C
@@ -265,29 +255,28 @@ def _v2_sb(config: Config, n_cf: int, C: int) -> int:
     from .lossless import bfp as _bfp
 
     sb = int(getattr(config, "bfp_sb_blocks", 0) or 0)
-    if (sb >= _bfp.SB_PALLAS_MIN and n_cf % (sb * 32) == 0
+    if (sb >= _bfp.SB_LARGE_MIN and n_cf % (sb * 32) == 0
             and sb % (C * _bfp.LANES) == 0):
         return sb
     return _bfp.SB_BLOCKS
 
 
 def _hybrid_v2_ok(padded, dtype, config: Config) -> bool:
-    """Gate for the one-pass cf front-end (ops/hybrid.py v2 kernel +
-    lossless/bfp.py prepared-payload cores). An explicit Config.bfp_chunk
-    that breaks the layout invariants fails the gate (clean legacy
-    fallback) instead of crashing inside the encode kernels."""
+    """Gate for the one-pass cf front-end (ops/hybrid.py
+    local_transform_v2_xla + lossless/bfp.py prepared-payload cores): the
+    shapes the flag-1 stream format admits. An explicit Config.bfp_chunk
+    that breaks the layout invariants fails the gate (clean flag-0
+    fallback) instead of crashing inside the encoder."""
     from .lossless import bfp as _bfp
-    from .ops.hybrid import _tile_shape_v2
 
     C = _pick_v2_chunk(padded, config)
     n_cf = int(np.prod(padded))
     sb = _v2_sb(config, n_cf, C)
     return (
-        jax.default_backend() == "tpu"
+        len(padded) == 3
         and np.dtype(dtype) == np.float32
         and config.lossless == lossless_type.BFP
         and bool(config.hybrid_level_grouping)
-        and _tile_shape_v2(padded) is not None
         and C >= 1
         and padded[-1] % (C * 32) == 0
         and sb % (C * _bfp.LANES) == 0
@@ -295,98 +284,18 @@ def _hybrid_v2_ok(padded, dtype, config: Config) -> bool:
     )
 
 
-@partial(jax.jit, static_argnames=("padded", "nl", "rem_hier", "K", "E"))
-def _compress_core_hybrid_v3(v, q_scalar, padded, nl, rem_hier, K, E):
-    """Fused v3 compress device phase: ONE Pallas kernel from field to
-    banded payload (+ the small remainder stream through the regular
-    decompose+quantize). The _hybrid_v3_ok gate guarantees the kernel
-    accepts the shape. Returns (base, resid, cw, rem_sym)."""
-    from .ops import hybrid as Hy
-
-    pad = [(0, p - sdim) for sdim, p in zip(v.shape, padded)]
-    if any(p for _, p in pad):
-        v = jnp.pad(v, pad, mode="edge")
-    inv_q = (1.0 / q_scalar).astype(v.dtype)
-    base, resid, cw, rem = Hy.local_transform_pack_v3(v, inv_q, nl, K, E)
-    rem_dec = decompose(rem, rem_hier, orthogonal=False)
-    half = jnp.asarray(0.5, v.dtype)
-    t = rem_dec * inv_q
-    rem_sym = jnp.trunc(jnp.where(t < 0, t - half, t + half)).astype(jnp.int32)
-    return base, resid, cw, rem_sym.ravel()
-
-
-def _v3_params(config: Config, padded):
-    """(K, E, C) for the fused v3 path, K = None when no base-plane count
-    is known yet (explicit/autotuned Config.bfp_base_planes, else the
-    sticky per-shape cache the v2 serializer fills — the FIRST stream of a
-    shape rides v2 and primes it; every later stream fuses)."""
-    from .lossless import bfp as _bfp
-
-    Z = padded[-1]
-    C = Z // 32
-    E = int(getattr(config, "bfp_resid_planes", 0) or _bfp.E_DEFAULT)
-    n_cf = int(np.prod(padded))
-    K_cfg = int(getattr(config, "bfp_base_planes", 0) or 0)
-    if K_cfg:
-        return K_cfg, E, C
-    # the v2 serializer keys the sticky cache by ITS chunk size
-    # (_pick_v2_chunk, <= 16), not v3's C = Z/32 — also look it up under
-    # that key so priming works for every Z (e.g. 768: C2=8 vs C=24). A K
-    # tuned for a different chunk size is only a ratio approximation;
-    # correctness is guarded by the serializer's cw_max > K+E fallback.
-    C2 = _pick_v2_chunk(padded, config)
-    for key in (("v2", n_cf, E, C, 0), ("v2", n_cf, E, C2, 0)):
-        ent = _bfp._K_CACHE.get(key)
-        if ent:
-            return int(ent[0]), E, C
-    return None, E, C
-
-
-def _hybrid_v3_ok(padded, dtype, config: Config) -> bool:
-    """Gate for the FUSED transform+pack path (ops/hybrid.py v3 kernels):
-    the whole compress device phase is ONE Pallas kernel per direction —
-    each (8, 128, Z) tile is one BFP superblock, so the u16 payload never
-    round-trips HBM and the sort plan is computed in-kernel. Engages only
-    when the base-plane count K is already known (see _v3_params) and the
-    u16 budget holds."""
-    from .ops.hybrid import v3_ok_shape
-
-    if not (
-        bool(getattr(config, "hybrid_fused_pack", False))
-        and jax.default_backend() == "tpu"
-        and np.dtype(dtype) == np.float32
-        and config.lossless == lossless_type.BFP
-        and bool(config.hybrid_level_grouping)
-        and not int(getattr(config, "bfp_chunk", 0) or 0)
-        and not int(getattr(config, "bfp_sb_blocks", 0) or 0)
-        and v3_ok_shape(padded)
-    ):
-        return False
-    K, E, _C = _v3_params(config, padded)
-    # K >= 1: a zero base-plane count would leave the fused kernel's
-    # base_ref output unwritten (declared but never stored to)
-    return K is not None and K >= 1 and 1 <= E <= 15 and K + E <= 16
-
-
 @partial(jax.jit, static_argnames=("shape", "padded", "nl", "rem_hier",
                                    "K", "E"))
 def _decompress_core_hybrid_v3(base, crl, resid, rem_sym, q_scalar, shape,
                                padded, nl, rem_hier, K, E):
-    """Fused v3 inverse: static-slot banded payload + rem symbols ->
-    field. TPU: one Pallas kernel (unpack + un-sort + ungroup + dequantize
-    + local recompose); elsewhere the plain-XLA mirror so any host decodes
-    v3 streams."""
+    """v3 (flag-2) inverse: static-slot banded payload + rem symbols ->
+    field."""
     from .ops import hybrid as Hy
 
     work = jnp.float32
     q = q_scalar.astype(work)
     rem_dec = (rem_sym.astype(work) * q).reshape(rem_hier.shape)
     rem = recompose(rem_dec, rem_hier, orthogonal=False)
-    if jax.default_backend() == "tpu":
-        out = Hy.unpack_inverse_v3(base, crl, resid, rem, q, nl, K, E,
-                                   work, padded)
-        if out is not None:
-            return out[tuple(slice(0, s) for s in shape)]
     out = Hy.unpack_inverse_v3_xla(base, crl, resid, rem, q, nl, K, E,
                                    work, padded)
     return out[tuple(slice(0, s) for s in shape)]
@@ -402,7 +311,7 @@ def _compress_core_hybrid_v2(v, q_scalar, padded, nl, rem_hier, C):
     if any(p for _, p in pad):
         v = jnp.pad(v, pad, mode="edge")
     inv_q = (1.0 / q_scalar).astype(v.dtype)
-    pay, cw, rem = Hy.local_transform_fused_v2(v, inv_q, nl, C)
+    pay, cw, rem = Hy.local_transform_v2_xla(v, inv_q, nl, C)
     rem_dec = decompose(rem, rem_hier, orthogonal=False)
     half = jnp.asarray(0.5, v.dtype)
     t = rem_dec * inv_q
@@ -421,18 +330,12 @@ def _decompress_core_hybrid_v2(zz_rows, rem_sym, q_scalar, shape, padded, nl,
     rem_dec = (rem_sym.astype(work) * q).reshape(rem_hier.shape)
     rem = recompose(rem_dec, rem_hier, orthogonal=False)
     pay = zz_rows.reshape(padded)
-    # fused Pallas kernel on TPU; plain-XLA path elsewhere so a host
-    # without the TPU Pallas backend can still decode v2 streams
-    out = (Hy.local_inverse_fused_v2(pay, rem, q, nl, work)
-           if jax.default_backend() == "tpu" else None)
-    if out is None:
-        out = Hy.local_inverse_v2_xla(pay, rem, q, nl, work)
+    out = Hy.local_inverse_v2_xla(pay, rem, q, nl, work)
     return out[tuple(slice(0, s) for s in shape)]
 
 
-@partial(jax.jit, static_argnames=("padded", "nl", "rem_hier", "fused", "zgroup"))
-def _compress_core_hybrid(v, q_scalar, padded, nl, rem_hier, fused=False,
-                          zgroup=False):
+@partial(jax.jit, static_argnames=("padded", "nl", "rem_hier", "zgroup"))
+def _compress_core_hybrid(v, q_scalar, padded, nl, rem_hier, zgroup=False):
     from .ops import hybrid as Hy
 
     pad = [(0, p - s) for s, p in zip(v.shape, padded)]
@@ -445,13 +348,6 @@ def _compress_core_hybrid(v, q_scalar, padded, nl, rem_hier, fused=False,
         t = x * inv_q
         return jnp.trunc(jnp.where(t < 0, t - half, t + half)).astype(jnp.int32)
 
-    if fused:
-        # one-pass Pallas kernel: local transform + corner split + quantize
-        sym_cf, rem = Hy.local_transform_fused(v, inv_q, nl)
-        rem_dec = decompose(rem, rem_hier, orthogonal=False)
-        if zgroup:
-            sym_cf = Hy.zclass_group(sym_cf)
-        return jnp.concatenate([sym_cf.ravel(), quant(rem_dec).ravel()])
     dec = Hy.local_decompose(v, nl)
     rem = Hy.extract_remainder(dec, nl)
     cf = jnp.where(Hy.corner_mask(dec.shape, nl), jnp.zeros((), dec.dtype), dec)
@@ -462,8 +358,8 @@ def _compress_core_hybrid(v, q_scalar, padded, nl, rem_hier, fused=False,
     return jnp.concatenate([cf_sym.ravel(), quant(rem_dec).ravel()])
 
 
-@partial(jax.jit, static_argnames=("shape", "padded", "nl", "rem_hier", "fused", "zgroup"))
-def _decompress_core_hybrid(sym, q_scalar, shape, padded, nl, rem_hier, fused=False,
+@partial(jax.jit, static_argnames=("shape", "padded", "nl", "rem_hier", "zgroup"))
+def _decompress_core_hybrid(sym, q_scalar, shape, padded, nl, rem_hier,
                             zgroup=False):
     from .ops import hybrid as Hy
 
@@ -475,9 +371,6 @@ def _decompress_core_hybrid(sym, q_scalar, shape, padded, nl, rem_hier, fused=Fa
     cf_sym = sym[:n_cf].reshape(padded)
     if zgroup:
         cf_sym = Hy.zclass_ungroup(cf_sym)
-    if fused:
-        out = Hy.local_inverse_fused(cf_sym, rem.astype(work), q, nl, work)
-        return out[tuple(slice(0, s) for s in shape)]
     cf = cf_sym.astype(work) * q
     dec = Hy.insert_remainder(cf, rem.astype(work), nl)
     out = Hy.local_recompose(dec, nl)
@@ -515,20 +408,6 @@ def _deserialize_outliers(data: bytes, offset: int):
 # Public API
 # ----------------------------------------------------------------------
 _EMPTY_OUTLIERS = None
-
-
-def _sections_wire_minor(sections, config: Config) -> int:
-    """Minimum minor file version the payload requires: 1 (file 2.1) only
-    when a hybrid flag-2 (fused v3) section was actually written, else 0 —
-    so 2.0 readers keep parsing every stream they can decode."""
-    if config.decomposition != decomposition_type.Hybrid:
-        return 0
-    off = len(_empty_outliers())
-    for sec in sections:
-        first = bytes(sec[0]) if not isinstance(sec, (bytes, bytearray)) else bytes(sec)
-        if len(first) > off and first[off] == 2:
-            return 1
-    return 0
 
 
 def _empty_outliers() -> bytes:
@@ -570,15 +449,6 @@ def _dispatch_subdomain(
             remainder_shape(padded, nl), hier.dtype, None, config
         )
         q = _hybrid_quantizer(abs_tol, hybrid_l_total(padded, nl, rem_hier))
-        if _hybrid_v3_ok(padded, hier.dtype, config):
-            K, E, _C3 = _v3_params(config, padded)
-            base, resid, cw, rem_sym = _compress_core_hybrid_v3(
-                v, jnp.asarray(q, hier.dtype), padded, nl, rem_hier, K, E
-            )
-            rem_state = _raw_encode_device(rem_sym, config)
-            return ("hybrid_v3",
-                    (base, resid, cw, rem_state, v, hier, q, padded,
-                     nl, rem_hier, K, E))
         if _hybrid_v2_ok(padded, hier.dtype, config):
             C = _pick_v2_chunk(padded, config)
             pay, cw, rem_sym = _compress_core_hybrid_v2(
@@ -589,7 +459,6 @@ def _dispatch_subdomain(
                     (pay, cw, rem_state, v, hier, q, padded, nl, rem_hier, C))
         sym = _compress_core_hybrid(
             v, jnp.asarray(q, hier.dtype), padded, nl, rem_hier,
-            fused=_hybrid_fused_ok(padded, hier.dtype),
             zgroup=bool(config.hybrid_level_grouping),
         )
         return ("hybrid_raw", _raw_encode_device(sym, config))
@@ -666,16 +535,16 @@ def _serialize_hybrid_v2(st, config: Config) -> list:
         hist = np.bincount(np.clip(cw_h, 0, 32), minlength=33)
         K = _bfp.choose_K(hist, E, C)
         _bfp._K_CACHE[key] = (K, None)
-    # the kernel's cw are TRUE u32 widths: any chunk wider than K+E (or 16)
+    # cw are TRUE u32 widths: any chunk wider than K+E (or 16)
     # would have been truncated by the u16 payload -> legacy path
     cw_h = np.asarray(cw) if cw_h is None else cw_h
     cw_max = int(cw_h.max())
-    if not K_cfg and cw_max > K + E and cw_max <= 16:
-        # a STALE sticky K (chosen for a coarser tolerance on this shape)
-        # undersizes the current stream's widths; re-choose from the
-        # already-synced widths and refresh the cache instead of dropping
-        # to the legacy path (tol changes on one shape must not cost the
-        # fast format)
+    if not K_cfg and (cw_max > K + E or K + E > 16) and cw_max <= 16:
+        # a STALE sticky K (chosen for another tolerance or field of this
+        # shape) undersizes the current stream's widths or overruns the
+        # u16 budget; re-choose from the already-synced widths and refresh
+        # the cache instead of dropping to the legacy path (tol changes on
+        # one shape must not cost the fast format)
         hist = np.bincount(np.clip(cw_h, 0, 32), minlength=33)
         # clamp into [cw_max - E, 16 - E]: the lower end keeps the stream
         # exception-free, the upper end keeps the u16 payload budget
@@ -684,7 +553,6 @@ def _serialize_hybrid_v2(st, config: Config) -> list:
     if K + E > 16 or cw_max > K + E:
         sym = _compress_core_hybrid(
             v, jnp.asarray(q, hier.dtype), padded, nl, rem_hier,
-            fused=_hybrid_fused_ok(padded, hier.dtype),
             zgroup=bool(config.hybrid_level_grouping),
         )
         lt_eff, dev_state = _raw_encode_device(sym, config)
@@ -695,68 +563,10 @@ def _serialize_hybrid_v2(st, config: Config) -> list:
     # stream admits it (the _hybrid_v2_ok gate re-checks the same rule, and
     # sb is recorded in the blob so any choice decodes everywhere)
     sb = _v2_sb(config, n_cf, C)
-    out = _bfp.encode_core_zz(
-        pay.reshape(-1, C * 32), crl, K, E, sb, _bfp._use_pallas(), C
-    )
+    out = _bfp.encode_core_zz(pay.reshape(-1, C * 32), crl, K, E, sb, C)
     cf_parts = _bfp.serialize_prepared_parts(n_cf, K, E, sb, C, crl, *out)
     rem_parts = _raw_section_parts(rem_state[0], rem_state[1], config)
     return ([_empty_outliers() + struct.pack("<B", 1)
-             + struct.pack("<Q", parts_size(cf_parts))]
-            + cf_parts + rem_parts)
-
-
-def _serialize_hybrid_v3(st, config: Config) -> list:
-    """Serialize the fused v3 front-end: flag byte 2, cf stream as a
-    static-slot BFP5 blob (tile-major chunk order), rem stream as a
-    standard lossless section. Falls back to the legacy single-stream
-    layout (flag 0) when the chunk widths exceed the configured budget
-    (a K from the sticky cache can undersize a new field)."""
-    from .lossless import bfp as _bfp
-    from .utils.bytesink import parts_size
-
-    (base, resid, cw, rem_state, v, hier, q, padded, nl, rem_hier,
-     K, E) = st
-    cw_h = np.asarray(cw).ravel()
-    cw_max = int(cw_h.max())
-    if cw_max > K + E:
-        # the fused kernel packed with a stale K (tolerance changed on a
-        # primed shape): the banded payload is unusable. Where the v2
-        # front-end runs (its own gate — a forced/oracle v3 on a non-TPU
-        # host has no v2 kernel), the v2 serializer below re-chooses K
-        # from fresh widths, refreshes the cache (so the NEXT stream
-        # fuses correctly) and keeps the fast flag-1 format; otherwise
-        # (or on true u16 overflow there) the legacy layout is the
-        # fallback.
-        if _hybrid_v2_ok(padded, hier.dtype, config):
-            C2 = _pick_v2_chunk(padded, config)
-            pay, cw2, _rem_sym = _compress_core_hybrid_v2(
-                v, jnp.asarray(q, hier.dtype), padded, nl, rem_hier, C2
-            )
-            # the v3 dispatch already encoded the remainder for this same
-            # quantizer — reuse it instead of re-encoding _rem_sym
-            return _serialize_hybrid_v2(
-                (pay, cw2, rem_state, v, hier, q, padded, nl, rem_hier,
-                 C2),
-                config,
-            )
-        sym = _compress_core_hybrid(
-            v, jnp.asarray(q, hier.dtype), padded, nl, rem_hier,
-            fused=_hybrid_fused_ok(padded, hier.dtype),
-            zgroup=bool(config.hybrid_level_grouping),
-        )
-        lt_eff, dev_state = _raw_encode_device(sym, config)
-        return ([_empty_outliers() + struct.pack("<B", 0)]
-                + _raw_section_parts(lt_eff, dev_state, config))
-    n_cf = int(np.prod(padded))
-    Z = padded[-1]
-    C = Z // 32
-    sb = 32 * Z
-    crl = np.clip(cw_h - K, 0, E).astype(np.int32)
-    cf_parts = _bfp.serialize_prepared_parts(
-        n_cf, K, E, sb, C, crl, base, resid, 0, static_cap=True
-    )
-    rem_parts = _raw_section_parts(rem_state[0], rem_state[1], config)
-    return ([_empty_outliers() + struct.pack("<B", 2)
              + struct.pack("<Q", parts_size(cf_parts))]
             + cf_parts + rem_parts)
 
@@ -765,8 +575,6 @@ def _serialize_subdomain(state, config: Config, abs_tol: float, s: float,
                          orthogonal: bool, prep: bool) -> list:
     """Host phase: sync the dispatched state and build the payload as
     bytesink parts (the top-level assembly writes each byte once)."""
-    if state[0] == "hybrid_v3":
-        return _serialize_hybrid_v3(state[1], config)
     if state[0] == "hybrid_v2":
         return _serialize_hybrid_v2(state[1], config)
     if state[0] == "hybrid_raw":
@@ -887,9 +695,10 @@ def compress(
             # image through the flagship pipeline with the cast error
             # deducted from the tolerance. |out - u| <= (tol_abs - e_c) +
             # e_c = tol_abs, so the user's bound holds on the DOUBLE data.
-            # TPU f64 is an emulated f32 pair, so this demotion — not an
-            # emulated-f64 transform — is the tpu-native double design
-            # (reference instantiates double natively: compress_x.hpp:31-159).
+            # The demotion was designed for a device whose f64 is an
+            # emulated f32 pair; it halves the bytes every stage moves on
+            # any device (the reference instantiates double natively:
+            # compress_x.hpp:31-159).
             a64 = jnp.asarray(arr)
             u32 = a64.astype(jnp.float32)
             e_c = float(jnp.max(jnp.abs(a64 - u32.astype(jnp.float64))))
@@ -1092,7 +901,6 @@ def compress(
             if config.decomposition == decomposition_type.Hybrid
             else 0,
             adjusted=adjusted,
-            wire_minor=_sections_wire_minor(sections, config),
         )
         # single-copy final assembly: header + every section written once
         blob = _join([meta.serialize()] + payload_parts)
@@ -1320,8 +1128,7 @@ def decompress(
                     )
                 else:
                     zz_rows = _bfp.decode_core_zz(
-                        base3d, crl, rbuf, K, E, sb, _bfp._use_pallas(),
-                        n_cf // 32, C,
+                        base3d, crl, rbuf, K, E, sb, n_cf // 32, C,
                     )
                     rec = _decompress_core_hybrid_v2(
                         zz_rows, rem_sym, jnp.asarray(qh, work_dtype),
@@ -1369,8 +1176,7 @@ def decompress(
                 )
                 rec = _decompress_core_hybrid(
                     qflat, jnp.asarray(q, work_dtype), hier.shape, padded, nl,
-                    rem_hier, fused=_hybrid_fused_ok(padded, dtype),
-                    zgroup=bool(meta.hybrid_grouping),
+                    rem_hier, zgroup=bool(meta.hybrid_grouping),
                 )
             elif _raw_symbol_backend(meta.ltype):
                 rec = _decompress_core_sym(

@@ -1,22 +1,19 @@
-"""BFP — width-sorted prefix bitplane codec (TPU fast path v3).
+"""BFP — width-sorted prefix bitplane codec (the default lossless stage).
 
-Successor to BFX (lossless/bfx.py). Round-3 kernel bisection on v5e
-(scripts/prof_bfp3.py) showed BFX/BFP2's log-depth variable-length merge
-tree costs ~20 ms of a 28.7 ms encode kernel at 512^3 — condensation, not
-the bit transforms, dominated. BFP3 removes condensation entirely:
+Successor to BFX (lossless/bfx.py), whose log-depth variable-length merge
+tree spends most of its encode time condensing variable-width block
+streams. BFP removes condensation entirely:
 
   1. Blocks are STABLY SORTED by residual width within each superblock
-     (rank from 9 masked cumsums — a counting sort, no jnp.sort). After
+     (rank from E+1 masked cumsums — a counting sort, no jnp.sort). After
      sorting, the valid words of every residual plane j form a PREFIX of
      the superblock (exactly the blocks with rl > j), so "condensing"
      plane j is a contiguous slice of cnt_j words — zero shuffle work.
-  2. The kernel ORs each plane into a per-superblock VMEM buffer at its
-     row offset (dynamic sublane windows; plane tails are all-zero words
-     of narrower blocks, so overlapping windows merge losslessly), then
-     issues ONE capacity-sized DMA per superblock to a content-based row
-     offset. Later superblocks overwrite earlier ones' zero spill — the
-     sequential grid + per-instance DMA wait make this deterministic
-     (probe: scripts/probe_dynwin.py).
+  2. Each plane is ORed into a per-superblock buffer at its row offset
+     (plane tails are all-zero words of narrower blocks, so overlapping
+     windows merge losslessly), and each superblock's buffer is placed at
+     a content-based row offset of the output; a later superblock's
+     window overwrites an earlier one's zero spill.
   3. The permutation is never stored: decode recomputes the identical
      counting sort from the nibble sidecar and un-sorts with one row
      gather by rank.
@@ -29,12 +26,9 @@ Reference counterpart: the fixed-length+outlier design of BlockDelta/cuSZp
 (reference: include/mgard-x/Lossless/BlockDelta/*.hpp); the sorted-prefix
 placement is this framework's own.
 
-Blob format "BFP5" (little-endian) — the BANDED layout (round 4): the
-whole device pipeline stays in the natural (NC, C*32) chunk-row layout.
-TPU tiles pad minor dims < 128 lanes to 128 in HBM, so the former
-(NB, 32) plane layout paid 4x traffic on the sort gather, the pack
-kernel's reads, and both again on decode; banded tiles are full-lane.
-Within a superblock each residual plane j is C BANDS (one per block slot
+Blob format "BFP5" (little-endian) — the BANDED layout: the whole device
+pipeline stays in the natural (NC, C*32) chunk-row layout. Within a
+superblock each residual plane j is C BANDS (one per block slot
 b in the chunk), band b holding the plane-j words of the first ccnt_j
 sorted chunks' b-th blocks, each band zero-padded to a 128-word row:
 
@@ -67,23 +61,20 @@ import numpy as np
 from ..ops.compact import masked_indices
 from .bfx import BS, _bit_transpose32, _unzigzag, _zigzag
 
-try:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    _HAVE_PALLAS = True
-except Exception:  # pragma: no cover
-    _HAVE_PALLAS = False
-
-SB_BLOCKS = 16384  # r3 u16 sweep: enc 15.6/dec 22.8 GB/s vs 14.6/18.6 at 8192
-SB_PALLAS_MIN = 8192  # smallest superblock the Pallas kernels engage for
+# Superblock sizes in 32-symbol blocks (format parameters recorded in each
+# blob, so any value decodes everywhere). Streams of at least
+# SB_BLOCKS * 32 symbols use SB_BLOCKS; smaller ones SB_BLOCKS_SMALL.
+SB_BLOCKS = 16384
+# Smallest large-stream superblock: streams under SB_LARGE_MIN * 32
+# symbols go to BFX instead (highlevel._effective_raw_lt), and a tuned
+# Config.bfp_sb_blocks below it is not admitted for the hybrid v2 stream.
+SB_LARGE_MIN = 8192
 SB_BLOCKS_SMALL = 256
 E_DEFAULT = 8
 LANES = 128
 # Blocks per sort chunk (a format parameter carried in the header).
-# Bigger chunks -> bigger sort-gather rows (the dominant encode cost on
-# this rig: XLA row gather pays ~30 ns/row regardless of width, so u16
-# rows want >= 512 B => C = 8) at the price of a coarser chunk-max width.
+# Bigger chunks -> fewer, wider sort-gather rows at the price of a coarser
+# chunk-max width.
 CHUNK = 8
 
 _MAGIC = b"BFP5"
@@ -111,8 +102,7 @@ def _sort_plan(rl2, E: int):
     for k in range(E, -1, -1):
         eq = (rl2 == k).astype(jnp.int32)
         # dtype= pins i32: under jax_enable_x64 sum/cumsum promote to i64,
-        # which both poisons the scalar-prefetch operands (Mosaic is
-        # 32-bit-only) and doubles scatter/gather index traffic
+        # which doubles scatter/gather index traffic
         prefix = jnp.cumsum(eq, axis=1, dtype=jnp.int32) - eq
         rank = rank + eq * (cnt_gt + prefix)
         cnts.append(cnt_gt)  # before adding bucket k: #(rl > k)
@@ -136,8 +126,7 @@ def _plan_offsets(cnt_c, C: int):
 
 
 # ----------------------------------------------------------------------
-# Pallas kernels: one pass per superblock, banded (sbc, C*32) tiles —
-# full 128-lane rows everywhere, no (NB, 32) lane-padded intermediates
+# Bitplane split / merge of banded (sbc, C*32) chunk-row tiles
 # ----------------------------------------------------------------------
 def _plane_split(tile_u32, C):
     """(sbc, C*32) u32 chunk rows -> (32, C, sbc) bitplane words: index
@@ -154,223 +143,8 @@ def _plane_merge(zt, C):
     return zi.transpose(1, 0, 2).reshape(C * BS, sbc).T
 
 
-def _sort_mxu(rows, rank_row, inverse=False):
-    """Permute (sbc, CL) u16-valued rows by rank (1, sbc) i32 on the MXU:
-    sorted[r] = rows[i] where rank[i] == r (inverse: natural[i] =
-    sorted[rank[i]]). The permutation is block-diagonal per superblock, so
-    it lives entirely in VMEM; each output row is exactly ONE input row,
-    so the bf16 hi/lo byte matmuls are exact at any precision. Replaces
-    the external XLA row gather (~8.5 ms at 512^3, per-row-overhead
-    bound) with ~1.4 ms of MXU work. Returns i32 rows (values <= 0xFFFF)."""
-    sbc = rows.shape[0]
-    if inverse:
-        rk = rank_row.reshape(sbc, 1)
-        iota = jax.lax.broadcasted_iota(jnp.int32, (sbc, sbc), 1)
-        P = (iota == rk).astype(jnp.bfloat16)  # P^T[i, r] = (rank[i]==r)
-    else:
-        iota = jax.lax.broadcasted_iota(jnp.int32, (sbc, sbc), 0)
-        P = (iota == rank_row).astype(jnp.bfloat16)  # P[r, i] = (rank[i]==r)
-    if rows.dtype != jnp.int32:
-        # widen via u32 (proven lowering) + bitcast: a direct u16->i32 /
-        # u32->i32 convert_element_type recurses in Mosaic's helper
-        rows = jax.lax.bitcast_convert_type(
-            rows.astype(jnp.uint32), jnp.int32
-        )
-    wide = rows
-    hi = jax.lax.shift_right_logical(wide, jnp.int32(8)).astype(jnp.bfloat16)
-    lo = jnp.bitwise_and(wide, jnp.int32(0xFF)).astype(jnp.bfloat16)
-    dn = (((1,), (0,)), ((), ()))
-    sh = jax.lax.dot_general(P, hi, dn, preferred_element_type=jnp.float32)
-    sl = jax.lax.dot_general(P, lo, dn, preferred_element_type=jnp.float32)
-    return jax.lax.shift_left(
-        sh.astype(jnp.int32), jnp.int32(8)
-    ) | sl.astype(jnp.int32)
-
-
-def _enc_kernel(K, E, PR, C, BPR, sort, woff_ref, rband_ref, sboff_ref,
-                *refs):
-    """Band pack kernel. sort=False: rows arrive width-sorted (external
-    gather path). sort=True: NATURAL-order u16 rows + per-superblock rank
-    ride in and the width sort happens in VMEM via _sort_mxu. ONE body for
-    both so the OR-spill capacity arithmetic can never desynchronize."""
-    if sort:
-        rank_ref, sym_ref, base_ref, out_ref, buf, sem = refs
-    else:
-        sym_ref, base_ref, out_ref, buf, sem = refs
-    i = pl.program_id(0)
-    sbc = sym_ref.shape[0]
-    CAP = E * PR
-    if sort:
-        rows = _sort_mxu(sym_ref[...], rank_ref[...].reshape(1, sbc))
-        zt = _plane_split(jax.lax.bitcast_convert_type(rows, jnp.uint32), C)
-    else:
-        # payload is pre-zigzagged (u16 when K+E <= 16 — halves every HBM
-        # pass feeding the kernel; u32 otherwise); widen is register-only
-        zt = _plane_split(sym_ref[...].astype(jnp.uint32), C)
-    if K:
-        base_ref[...] = zt[:K].reshape(1, K, C, sbc)
-    buf[...] = jnp.zeros_like(buf)
-    for j in range(E):
-        o = woff_ref[i * E + j]
-        rb = rband_ref[i * E + j]
-        for b in range(C):
-            # capacity write of a FULL band (BPR rows) at the band's
-            # offset: rows past rband hold plane words of chunks with
-            # rl <= j, which are zero — OR-spill into the next band is
-            # lossless (same trick as the superblock DMA chain)
-            ob = o + b * rb
-            cur = buf[pl.ds(ob, BPR)]
-            buf[pl.ds(ob, BPR)] = cur | zt[K + j, b].reshape(BPR, LANES)
-    dma = pltpu.make_async_copy(
-        buf.at[pl.ds(0, CAP)], out_ref.at[pl.ds(sboff_ref[i], CAP)], sem
-    )
-    dma.start()
-    dma.wait()
-
-
-def _dec_kernel(K, E, PR, C, BPR, unsort, woff_ref, rband_ref, sboff_ref,
-                cnt_ref, *refs):
-    """Band unpack kernel. unsort=False: emit width-sorted zigzag tiles
-    (un-sort gather happens outside). unsort=True: un-sort to NATURAL
-    chunk order in VMEM via _sort_mxu before writing. ONE body for both —
-    mirror of _enc_kernel."""
-    if unsort:
-        rank_ref, base_ref, flat_ref, out_ref, buf, sem = refs
-    else:
-        base_ref, flat_ref, out_ref, buf, sem = refs
-    i = pl.program_id(0)
-    sbc = out_ref.shape[0]
-    CAP = E * PR
-    dma = pltpu.make_async_copy(
-        flat_ref.at[pl.ds(sboff_ref[i], CAP)], buf.at[pl.ds(0, CAP)], sem
-    )
-    dma.start()
-    dma.wait()
-    rows = [base_ref[...].reshape(max(K, 1), C, sbc)[:K]] if K else []
-    col = jax.lax.broadcasted_iota(jnp.int32, (1, 1, sbc), 2)
-    for j in range(E):
-        o = woff_ref[i * E + j]
-        rb = rband_ref[i * E + j]
-        bands = []
-        for b in range(C):
-            bands.append(buf[pl.ds(o + b * rb, BPR)].reshape(1, 1, sbc))
-        pj = jnp.concatenate(bands, axis=1)  # (1, C, sbc)
-        rows.append(jnp.where(col < cnt_ref[i * E + j], pj, jnp.uint32(0)))
-    hi = 32 - K - E
-    if hi > 0:
-        rows.append(jnp.zeros((hi, C, sbc), jnp.uint32))
-    zt = jnp.concatenate(rows, axis=0)
-    merged = _plane_merge(zt, C)  # (sbc, CL) u32 zigzag
-    if unsort:
-        nat = _sort_mxu(
-            jax.lax.bitcast_convert_type(merged, jnp.int32),
-            rank_ref[...].reshape(1, sbc), inverse=True,
-        )
-        out_ref[...] = jax.lax.bitcast_convert_type(nat, jnp.uint32).astype(
-            out_ref.dtype
-        )
-    else:
-        # emit ZIGZAG tiles in the payload dtype; un-zigzag happens outside
-        # after the un-sort gather (on the narrow half-width stream)
-        out_ref[...] = merged.astype(out_ref.dtype)
-
-
-def _encode_pallas(sym_rows, woff, rband, sb_off, K, E, sb, C, alloc_rows,
-                   rank_c=None):
-    """rank_c None: sym_rows already sorted. rank_c (NSB, sbc): sym_rows in
-    natural order, sorted in-kernel on the MXU (u16 payloads only)."""
-    NC = sym_rows.shape[0]
-    sbc = sb // C
-    NSB = NC // sbc
-    PR = sb // LANES
-    BPR = sbc // LANES
-    in_kernel_sort = rank_c is not None
-    # rank rides as (NSB, 1, sbc) so its (1, 1, sbc) block satisfies the
-    # last-two-dims rule (both equal to the array dims)
-    rank_specs = ([pl.BlockSpec((1, 1, sbc),
-                                lambda i, *_: (i, i * 0, i * 0),
-                                memory_space=pltpu.VMEM)]
-                  if in_kernel_sort else [])
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(NSB,),
-        in_specs=rank_specs + [
-            pl.BlockSpec((sbc, C * BS), lambda i, *_: (i, i * 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, max(K, 1), C, sbc),
-                         lambda i, *_: (i, i * 0, i * 0, i * 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.ANY),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((E * PR + 16, LANES), jnp.uint32),
-            pltpu.SemaphoreType.DMA,
-        ],
-    )
-    kern = partial(_enc_kernel, K, E, PR, C, BPR, in_kernel_sort)
-    args = (woff.reshape(-1), rband.reshape(-1), sb_off)
-    args += ((rank_c.reshape(NSB, 1, sbc), sym_rows) if in_kernel_sort
-             else (sym_rows,))
-    return pl.pallas_call(
-        kern,
-        out_shape=[
-            jax.ShapeDtypeStruct((NSB, max(K, 1), C, sbc), jnp.uint32),
-            jax.ShapeDtypeStruct((alloc_rows, LANES), jnp.uint32),
-        ],
-        grid_spec=grid_spec,
-        compiler_params=pltpu.CompilerParams(
-            has_side_effects=True, vmem_limit_bytes=64 * 1024 * 1024
-        ),
-    )(*args)
-
-
-def _decode_pallas(base4d, flat2d, woff, rband, sb_off, cnt_c, K, E, sb, C,
-                   out_dtype, rank_c=None):
-    """rank_c None: emit sorted rows. rank_c (NSB, sbc): un-sort to natural
-    chunk order in-kernel on the MXU (u16 payloads only)."""
-    NSB = base4d.shape[0]
-    sbc = sb // C
-    PR = sb // LANES
-    BPR = sbc // LANES
-    in_kernel_sort = rank_c is not None
-    rank_specs = ([pl.BlockSpec((1, 1, sbc),
-                                lambda i, *_: (i, i * 0, i * 0),
-                                memory_space=pltpu.VMEM)]
-                  if in_kernel_sort else [])
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(NSB,),
-        in_specs=rank_specs + [
-            pl.BlockSpec((1, max(K, 1), C, sbc),
-                         lambda i, *_: (i, i * 0, i * 0, i * 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.ANY),
-        ],
-        out_specs=pl.BlockSpec((sbc, C * BS), lambda i, *_: (i, i * 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((E * PR + 16, LANES), jnp.uint32),
-            pltpu.SemaphoreType.DMA,
-        ],
-    )
-    kern = partial(_dec_kernel, K, E, PR, C, BPR, in_kernel_sort)
-    args = (woff.reshape(-1), rband.reshape(-1), sb_off, cnt_c.reshape(-1))
-    args += ((rank_c.reshape(NSB, 1, sbc), base4d, flat2d) if in_kernel_sort
-             else (base4d, flat2d))
-    return pl.pallas_call(
-        kern,
-        out_shape=jax.ShapeDtypeStruct((NSB * sbc, C * BS), out_dtype),
-        grid_spec=grid_spec,
-        compiler_params=pltpu.CompilerParams(
-            has_side_effects=True, vmem_limit_bytes=64 * 1024 * 1024
-        ),
-    )(*args)
-
-
 # ----------------------------------------------------------------------
-# XLA fallback (CPU oracle): identical format via dynamic slices
+# Band pack / unpack, vmapped over superblocks
 # ----------------------------------------------------------------------
 def _encode_xla(sym_sorted, woff, rband, sb_off, K, E, sb, C, alloc_rows):
     NC = sym_sorted.shape[0]
@@ -407,7 +181,7 @@ def _encode_xla(sym_sorted, woff, rband, sb_off, K, E, sb, C, alloc_rows):
     def body(out, xs):
         buf, off = xs
         # capacity window write; later (higher-offset) windows overwrite
-        # earlier zero spill — same semantics as the DMA chain
+        # earlier zero spill
         return jax.lax.dynamic_update_slice(out, buf, (off, jnp.int32(0))), None
 
     out, _ = jax.lax.scan(body, out, (bufs, sb_off))
@@ -449,13 +223,9 @@ def _decode_xla(base4d, flat2d, woff, rband, sb_off, cnt_c, K, E, sb, C,
 # ----------------------------------------------------------------------
 # Device cores
 # ----------------------------------------------------------------------
-def _use_pallas() -> bool:
-    return jax.default_backend() == "tpu"
-
-
-@partial(jax.jit, static_argnums=(1, 2, 3, 4, 5, 6))
+@partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
 def encode_core(sym_padded, K: int, E: int, sb: int, exc_cap: int,
-                use_pallas: bool, C: int = CHUNK):
+                C: int = CHUNK):
     """sym_padded (N,) int32, N % (sb*32) == 0.
 
     Returns (base (NSB, max(K,1), sb) u32 [sorted order], crl (NC,) i32
@@ -463,11 +233,9 @@ def encode_core(sym_padded, K: int, E: int, sb: int, exc_cap: int,
     u32, resid_rows i32, exc_ids (exc_cap,) i32, exc_blocks (exc_cap, 32)
     i32, exc_count i32).
 
-    The sort unit is a CHUNK of C blocks: XLA's TPU row gather pays a
-    fixed ~30 ns per row regardless of row bytes (scripts/prof_gather.py,
-    r4 bandwidth probe: streaming runs at TB/s while the 1M-row gather
-    took 33 ms), so larger chunks cut the dominant encode cost linearly
-    at the price of a coarser chunk-max width."""
+    The sort unit is a CHUNK of C blocks: the width sort is one row gather
+    of NC = NB / C rows, so larger chunks mean fewer, wider rows at the
+    price of a coarser chunk-max width."""
     N = sym_padded.shape[0]
     NB = N // BS
     NC = NB // C
@@ -475,17 +243,14 @@ def encode_core(sym_padded, K: int, E: int, sb: int, exc_cap: int,
     sbc = sb // C
     PR = sb // LANES
     CAP = E * PR
-    # chunk widths: zigzag + full-lane max on the natural (NC, 128) layout
-    # (no (NB, 32) reshape — minor dims < 128 get lane-padded 4x in HBM and
-    # every op touching them pays 4x the traffic)
+    # chunk widths: zigzag + max on the natural (NC, C*32) chunk-row layout
     sym_rows = sym_padded.reshape(NC, C * BS)
     zz_rows = _zigzag(sym_rows)
     cmx = jnp.max(zz_rows, axis=1)
     cw = _widths_from_max(cmx)
     # exception chunks carry their payload verbatim in the side stream;
-    # their sorted-stream content is ZEROED (crl = 0, zero planes) so both
-    # execution paths serialize identical bytes and the u16 narrow path
-    # never truncates live data
+    # their sorted-stream content is ZEROED (crl = 0, zero planes) so the
+    # u16 narrow path never truncates live data
     mask = cw > (K + E)
     exc_count = jnp.sum(mask.astype(jnp.int32))
     exc_ids = masked_indices(mask, exc_cap, NC)
@@ -493,14 +258,13 @@ def encode_core(sym_padded, K: int, E: int, sb: int, exc_cap: int,
     crl = jnp.where(mask, 0, jnp.clip(cw - K, 0, E))
     zz_rows = jnp.where(mask[:, None], jnp.uint32(0), zz_rows)
     # narrow payload: with K+E <= 16 every surviving zigzag value fits 16
-    # bits — halves the gather, the relayout, and the kernel's HBM reads
+    # bits — halves the gather and the relayout traffic
     narrow = (K + E) <= 16
     payload = zz_rows.astype(jnp.uint16) if narrow else zz_rows
     rank_c, cnt_c = _sort_plan(crl.reshape(NSB, sbc), E)
     rband, woff, sb_off, resid_rows = _plan_offsets(cnt_c, C)
     # invert the chunk-rank permutation (scatter of unique indices) and
-    # gather chunk rows into sorted order — the gather's (NC, C*32)
-    # output layout IS the kernels' tile layout (no lane-padded reshape)
+    # gather chunk rows into sorted order
     rank_g = (rank_c + jnp.arange(NSB, dtype=jnp.int32)[:, None] * sbc).reshape(-1)
     perm = (
         jnp.zeros((NC,), jnp.int32)
@@ -509,20 +273,15 @@ def encode_core(sym_padded, K: int, E: int, sb: int, exc_cap: int,
     )
     zz_sorted = jnp.take(payload, perm, axis=0)
     alloc_rows = (NSB + 1) * CAP
-    if use_pallas:
-        base, resid2d = _encode_pallas(
-            zz_sorted, woff, rband, sb_off, K, E, sb, C, alloc_rows
-        )
-    else:
-        base, resid2d = _encode_xla(
-            zz_sorted, woff, rband, sb_off, K, E, sb, C, alloc_rows
-        )
+    base, resid2d = _encode_xla(
+        zz_sorted, woff, rband, sb_off, K, E, sb, C, alloc_rows
+    )
     return base, crl, resid2d, resid_rows, exc_ids, exc_blocks, exc_count
 
 
-@partial(jax.jit, static_argnums=(5, 6, 7, 8, 9, 10))
+@partial(jax.jit, static_argnums=(5, 6, 7, 8, 9))
 def decode_core(base4d, crl, resid2d, exc_ids, exc_blocks, K: int, E: int,
-                sb: int, use_pallas: bool, NB: int, C: int = CHUNK):
+                sb: int, NB: int, C: int = CHUNK):
     """Inverse of encode_core -> (N,) int32 symbols."""
     NC = NB // C
     NSB = NB // sb
@@ -531,12 +290,8 @@ def decode_core(base4d, crl, resid2d, exc_ids, exc_blocks, K: int, E: int,
     rband, woff, sb_off, _ = _plan_offsets(cnt_c, C)
     narrow = (K + E) <= 16
     out_dtype = jnp.uint16 if narrow else jnp.uint32
-    if use_pallas:
-        zz_sorted = _decode_pallas(base4d, resid2d, woff, rband, sb_off,
-                                   cnt_c, K, E, sb, C, out_dtype)
-    else:
-        zz_sorted = _decode_xla(base4d, resid2d, woff, rband, sb_off,
-                                cnt_c, K, E, sb, C, out_dtype)
+    zz_sorted = _decode_xla(base4d, resid2d, woff, rband, sb_off,
+                            cnt_c, K, E, sb, C, out_dtype)
     # un-sort: natural[c] = sorted[rank[c]] — one row gather (half width
     # on the narrow path), then widen + un-zigzag elementwise
     rank_g = (rank_c + jnp.arange(NSB, dtype=jnp.int32)[:, None] * sbc).reshape(-1)
@@ -548,20 +303,16 @@ def decode_core(base4d, crl, resid2d, exc_ids, exc_blocks, K: int, E: int,
 
 
 # ----------------------------------------------------------------------
-# Prepared-payload cores (hybrid v2 front-end): the transform kernel
-# already emitted the u16 zigzag payload and the true u32 chunk widths, so
+# Prepared-payload cores (hybrid v2 front-end): the transform already
+# emitted the u16 zigzag payload and the true u32 chunk widths, so
 # encode skips the zigzag/width/exception passes entirely. The caller
 # guarantees no chunk exceeds K+E planes (it falls back to the generic
 # path otherwise), so the serialized blob is plain BFP5 with exc_count=0.
 # ----------------------------------------------------------------------
-@partial(jax.jit, static_argnums=(2, 3, 4, 5, 6, 7))
-def encode_core_zz(payload_rows, crl, K: int, E: int, sb: int,
-                   use_pallas: bool, C: int, static_cap: bool = False):
+@partial(jax.jit, static_argnums=(2, 3, 4, 5))
+def encode_core_zz(payload_rows, crl, K: int, E: int, sb: int, C: int):
     """payload_rows: (NC, C*32) u16 zigzag, already grouped, exception-free.
-    crl: (NC,) i32 residual lengths. Returns (base, resid2d, resid_rows).
-    static_cap=True writes the fused-v3 fixed-slot residual layout
-    (superblock i's bands at row offset i*CAP; see _band_geometry) — the
-    XLA oracle for the fused transform+pack kernel."""
+    crl: (NC,) i32 residual lengths. Returns (base, resid2d, resid_rows)."""
     NC = payload_rows.shape[0]
     NB = NC * C
     NSB = NB // sb
@@ -569,20 +320,7 @@ def encode_core_zz(payload_rows, crl, K: int, E: int, sb: int,
     PR = sb // LANES
     rank_c, cnt_c = _sort_plan(crl.reshape(NSB, sbc), E)
     rband, woff, sb_off, resid_rows = _plan_offsets(cnt_c, C)
-    if static_cap:
-        CAP = E * PR
-        BPR = sbc // LANES
-        sb_off = (jnp.arange(NSB, dtype=jnp.int32) * CAP)
-        rband = jnp.full_like(rband, BPR)
-        rows = rband * C
-        woff = jnp.cumsum(rows, axis=1, dtype=jnp.int32) - rows
     alloc_rows = (NSB + 1) * E * PR
-    if use_pallas and payload_rows.dtype == jnp.uint16:
-        # width sort happens in-kernel on the MXU (block-diagonal perm)
-        base, resid2d = _encode_pallas(payload_rows, woff, rband, sb_off,
-                                       K, E, sb, C, alloc_rows,
-                                       rank_c=rank_c)
-        return base, resid2d, resid_rows
     rank_g = (rank_c + jnp.arange(NSB, dtype=jnp.int32)[:, None] * sbc).reshape(-1)
     perm = (
         jnp.zeros((NC,), jnp.int32)
@@ -590,23 +328,17 @@ def encode_core_zz(payload_rows, crl, K: int, E: int, sb: int,
         .set(jnp.arange(NC, dtype=jnp.int32), unique_indices=True)
     )
     zz_sorted = jnp.take(payload_rows, perm, axis=0)
-    if use_pallas:
-        base, resid2d = _encode_pallas(zz_sorted, woff, rband, sb_off,
-                                       K, E, sb, C, alloc_rows)
-    else:
-        base, resid2d = _encode_xla(zz_sorted, woff, rband, sb_off,
-                                    K, E, sb, C, alloc_rows)
+    base, resid2d = _encode_xla(zz_sorted, woff, rband, sb_off,
+                                K, E, sb, C, alloc_rows)
     return base, resid2d, resid_rows
 
 
-@partial(jax.jit, static_argnums=(3, 4, 5, 6, 7, 8, 9))
-def decode_core_zz(base4d, crl, resid2d, K: int, E: int, sb: int,
-                   use_pallas: bool, NB: int, C: int,
-                   static_cap: bool = False):
+@partial(jax.jit, static_argnums=(3, 4, 5, 6, 7, 8))
+def decode_core_zz(base4d, crl, resid2d, K: int, E: int, sb: int, NB: int,
+                   C: int, static_cap: bool = False):
     """Inverse of encode_core_zz -> (NC, C*32) u16 zigzag rows in natural
-    order (the hybrid-v2 inverse kernel consumes them directly).
-    static_cap: the residual buffer is in the fused-v3 fixed-slot
-    layout."""
+    order (the hybrid-v2 inverse consumes them directly). static_cap: the
+    residual buffer is in the v3 fixed-slot layout."""
     NC = NB // C
     NSB = NB // sb
     sbc = sb // C
@@ -619,10 +351,6 @@ def decode_core_zz(base4d, crl, resid2d, K: int, E: int, sb: int,
         rband = jnp.full_like(rband, BPR)
         rows = rband * C
         woff = jnp.cumsum(rows, axis=1, dtype=jnp.int32) - rows
-    if use_pallas:
-        return _decode_pallas(base4d, resid2d, woff, rband, sb_off,
-                              cnt_c, K, E, sb, C, jnp.uint16,
-                              rank_c=rank_c)
     zz_sorted = _decode_xla(base4d, resid2d, woff, rband, sb_off,
                             cnt_c, K, E, sb, C, jnp.uint16)
     rank_g = (rank_c + jnp.arange(NSB, dtype=jnp.int32)[:, None] * sbc).reshape(-1)
@@ -630,25 +358,11 @@ def decode_core_zz(base4d, crl, resid2d, K: int, E: int, sb: int,
 
 
 def serialize_prepared_parts(n: int, K: int, E: int, sb: int, C: int, crl,
-                             base, resid2d, resid_rows,
-                             static_cap: bool = False) -> list:
+                             base, resid2d, resid_rows) -> list:
     """encode_core_zz result as bytesink parts (exception-free blob).
     The residual payload is written by Fills: band compaction targets the
-    final blob region directly (single copy after the device fetch).
-    static_cap=True: the device resid buffer is in the fused-v3 fixed-slot
-    layout (see _band_geometry); wire bytes are identical."""
-    return _blob_parts(n, K, E, sb, C, crl, base, resid2d, resid_rows, 0,
-                       static_cap=static_cap)
-
-
-def serialize_prepared(n: int, K: int, E: int, sb: int, C: int, crl,
-                       base, resid2d, resid_rows) -> bytes:
-    """Serialize an encode_core_zz result as a standard BFP5 blob
-    (exception-free)."""
-    from ..utils.bytesink import join
-
-    return join(serialize_prepared_parts(n, K, E, sb, C, crl, base,
-                                         resid2d, resid_rows))
+    final blob region directly (single copy after the device fetch)."""
+    return _blob_parts(n, K, E, sb, C, crl, base, resid2d, resid_rows, 0)
 
 
 def deserialize_prepared(data: bytes, offset: int = 0,
@@ -656,7 +370,7 @@ def deserialize_prepared(data: bytes, offset: int = 0,
     """Parse a BFP5 blob into device arrays for decode_core_zz. Returns
     (base3d, crl, resid2d, (n, K, E, sb, C), consumed). Requires an
     exception-free blob (the hybrid-v2 writer's invariant). static_cap
-    expands the residual payload into the fused-v3 fixed-slot layout."""
+    expands the residual payload into the v3 fixed-slot layout."""
     magic, n, resid_rows, K, E, sb, C, cnt = struct.unpack_from(_HDR, data, offset)
     if magic != _MAGIC:
         raise ValueError("bad BFP blob")
@@ -735,22 +449,20 @@ def _band_geometry(crl_h: np.ndarray, E: int, C: int, sb: int,
     are permutation-invariant, so the sidecar alone determines them even
     though the device rows are width-sorted.
 
-    static_cap=True describes the fused-v3 DEVICE layout: every superblock
-    owns a fixed CAP = E*(sb/LANES)-row slot (offset i*CAP) with its bands
-    packed at per-SB offsets — the layout the fused transform+pack kernel
-    writes with static BlockSpec indexing (no cross-superblock scan). The
-    WIRE bytes are identical either way (compaction strips the padding);
-    only the device intermediate differs."""
+    static_cap=True describes the v3 (hybrid flag-2) DEVICE layout: every
+    superblock owns a fixed CAP = E*(sb/LANES)-row slot (offset i*CAP)
+    with its bands at static per-SB offsets. The WIRE bytes are identical
+    either way (compaction strips the padding); only the device
+    intermediate differs."""
     sbc = sb // C
     NSB = (crl_h.shape[0] * C) // sb
     crl2 = crl_h.reshape(NSB, sbc)
     cnt = (crl2[:, None, :] > np.arange(E)[None, :, None]).sum(2)  # (NSB,E)
     rband = -(-cnt // LANES)
     if static_cap:
-        # fused-v3 layout: band (j, b) owns the FULL BPR = sbc/LANES rows at
-        # the STATIC offset (j*C + b)*BPR inside the superblock's CAP slot —
-        # no in-SB compaction, no OR-spill, no dynamic offsets in the
-        # kernels. Rows past ceil(cnt/LANES) hold zero words (sorted-prefix
+        # v3 layout: band (j, b) owns the FULL BPR = sbc/LANES rows at the
+        # STATIC offset (j*C + b)*BPR inside the superblock's CAP slot.
+        # Rows past ceil(cnt/LANES) hold zero words (sorted-prefix
         # invariant), which the wire compaction strips via cnt.
         CAP = E * (sb // LANES)
         BPR = sbc // LANES
@@ -812,8 +524,7 @@ def _compact_resid_into(out: np.ndarray, resid_flat: np.ndarray,
 
 
 def _blob_parts(n: int, K: int, E: int, sb: int, C: int, crl, base,
-                resid2d, resid_rows, exc_cnt: int,
-                static_cap: bool = False) -> list:
+                resid2d, resid_rows, exc_cnt: int) -> list:
     """Common BFP blob assembly shared by serialize_prepared_parts and
     serialize_device_parts: header (with exc_cnt), nibble-packed sidecar,
     base planes (the non-contiguous [:, :K] slice rides as-is — bytesink
@@ -833,12 +544,10 @@ def _blob_parts(n: int, K: int, E: int, sb: int, C: int, crl, base,
         rl_h = np.concatenate([rl_h, np.zeros(1, np.uint8)])
     nib = rl_h[0::2] | (rl_h[1::2] << 4)
     base_h = np.asarray(base)[:, :K] if K else np.zeros(0, "<u4")
-    fetch_rows = (resid2d.size // LANES) if static_cap else rows_i
     resid_flat = device_get_prefix(
-        resid2d.reshape(-1), fetch_rows * LANES
+        resid2d.reshape(-1), rows_i * LANES
     ).astype(np.uint32)
-    cnt, rband, band_start, _ = _band_geometry(crl_h, E, C, sb,
-                                               static_cap=static_cap)
+    cnt, rband, band_start, _ = _band_geometry(crl_h, E, C, sb)
     words = int(cnt.sum()) * C
     head = struct.pack(_HDR, _MAGIC, n, words, K, E, sb, C, exc_cnt)
     parts = [head, nib.astype(np.uint8), base_h]
@@ -914,7 +623,7 @@ def _width_hist(sym, C: int = CHUNK):
 
 
 def _choose_sb(n: int) -> int:
-    return SB_BLOCKS if n >= SB_BLOCKS * BS and _use_pallas() else SB_BLOCKS_SMALL
+    return SB_BLOCKS if n >= SB_BLOCKS * BS else SB_BLOCKS_SMALL
 
 
 def _pad_to(n: int, sb: int) -> int:
@@ -945,7 +654,6 @@ def encode_device(symbols, config=None):
     if npad != n:
         sym = jnp.concatenate([sym, jnp.zeros(npad - n, jnp.int32)])
     NB = npad // BS
-    use_pallas = _use_pallas() and sb >= SB_PALLAS_MIN
     E = int(getattr(config, "bfp_resid_planes", 0) or E_DEFAULT)
     if not 1 <= E <= 15:
         # residual lengths are serialized as 4-bit nibbles; E >= 16 would
@@ -969,10 +677,10 @@ def encode_device(symbols, config=None):
             exc0 = int(hcw[K + E + 1 :].sum())
             _K_CACHE[key] = (K, _exc_bucket(exc0, NB // C))
     exc_cap = _K_CACHE.get(key, (K, max(256, (NB // C) >> 8)))[1]
-    out = encode_core(sym, K, E, sb, exc_cap, use_pallas, C)
+    out = encode_core(sym, K, E, sb, exc_cap, C)
     # sym rides along so serialize_device can re-dispatch on the rare
     # exception-bucket overflow without the caller keeping state
-    return ("bfp", n, K, E, sb, exc_cap, use_pallas, sym, out, C)
+    return ("bfp", n, K, E, sb, exc_cap, sym, out, C)
 
 
 def serialize_device_parts(state) -> list:
@@ -981,7 +689,7 @@ def serialize_device_parts(state) -> list:
                             CHUNK, 0)]
     from .huffman import device_get_prefix
 
-    _, n, K, E, sb, exc_cap, use_pallas, sym, out, C = state
+    _, n, K, E, sb, exc_cap, sym, out, C = state
     base, rl, resid2d, resid_rows, exc_ids, exc_blocks, exc_count = out
     cnt = int(exc_count)
     npad = _pad_to(n, sb)
@@ -991,7 +699,7 @@ def serialize_device_parts(state) -> list:
         # (bounded recompiles, mirrors the outlier-capture ladder)
         exc_cap = _exc_bucket(cnt, NB // C)
         _K_CACHE[(npad, E, C)] = (K, exc_cap)
-        out = encode_core(sym, K, E, sb, exc_cap, use_pallas, C)
+        out = encode_core(sym, K, E, sb, exc_cap, C)
         base, rl, resid2d, resid_rows, exc_ids, exc_blocks, exc_count = out
         cnt = int(exc_count)
     ids_h = device_get_prefix(exc_ids, cnt).astype("<u4")
@@ -1055,11 +763,10 @@ def decode(data: bytes, offset: int = 0):
     ids_pad[:cnt] = ids
     blk_pad = np.zeros((exc_cap, C * BS), np.int32)
     blk_pad[:cnt] = blocks
-    use_pallas = _use_pallas() and sb >= SB_PALLAS_MIN
     sym = decode_core(
         jnp.asarray(base), jnp.asarray(rl), jnp.asarray(rbuf),
         jnp.asarray(ids_pad), jnp.asarray(blk_pad),
-        K, E, sb, use_pallas, NB, C,
+        K, E, sb, NB, C,
     )
     return sym[:n], p - offset
 

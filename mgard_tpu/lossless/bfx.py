@@ -1,16 +1,14 @@
-"""BFX — block fixed-width bitplane codec, the TPU-native fast lossless stage.
+"""BFX — block fixed-width bitplane codec.
 
 A re-design of the reference's BlockDelta/cuSZp-style fixed-length backend
 (reference: include/mgard-x/Lossless/BlockDelta/*.hpp, modes Fixed/Delta/
-Outlier) around measured TPU primitive costs: data-dependent gathers and
-scatters run ~75M elem/s on TPU while dense vector ops, static-shift rolls
-and MXU matmuls run at 200-1600 GB/s. BFX therefore contains **zero
+Outlier) built from dense operations only — it contains **no
 data-dependent gathers or scatters**:
 
   * symbols are zigzag-mapped and grouped into blocks of 32;
   * each block stores its 32 values bit-transposed (32x32 butterfly network,
-    5 dense masked-shift steps — pure VPU work) as `width` 32-bit plane
-    words, where width = bit-length of the block's max value;
+    5 dense masked-shift steps) as `width` 32-bit plane words, where
+    width = bit-length of the block's max value;
   * within a superblock the variable-length block streams are condensed by
     a log-depth merge tree. Streams are paired (i, i+S/2); placing the
     right stream after the left is a bit-decomposed sequence of *static*
@@ -19,15 +17,9 @@ data-dependent gathers or scatters**:
     word order interleaves blocks in bit-reversed index order (documented
     format property; encode and decode share the schedule).
   * across superblocks the condensed streams are placed at their
-    exclusive-scan offsets (aligned to 1024 words — the 1D HBM tile size)
-    by sequential-grid DMA: the next superblock's copy overwrites the
-    previous one's padding.
-
-On TPU the butterfly + merge tree + placement run as ONE Pallas kernel per
-superblock with all intermediates VMEM-resident (the XLA glue is just
-zigzag/transpose/cumsum), replacing the reference's hand-scheduled CUDA
-encode kernels (BlockDelta/*.hpp). On CPU the same algorithm runs as plain
-XLA ops (the correctness oracle).
+    exclusive-scan offsets, each rounded up to the stream's recorded
+    alignment (1 for every stream this build writes; older streams may
+    record 1024), with the gap words zero.
 
 Arbitrary int32 magnitudes are representable (width <= 32), so the MGARD
 outlier side-channel (reference: OutlierSeparatorKernel, Huffman.hpp:571)
@@ -38,7 +30,8 @@ Blob format "BFX2":
   widths: NB bytes (one per 32-symbol block, natural block order)
   words:  total_words * u32 little-endian (per superblock: merge-schedule
           order = blocks by bit-reversed in-superblock index; each
-          superblock starts at a 1024-word-aligned offset, gap words are 0)
+          superblock starts at an align_words-aligned offset, gap words
+          are 0)
 """
 
 from __future__ import annotations
@@ -50,18 +43,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-try:  # Pallas lowers on TPU; on CPU rigs the XLA fallbacks below are used
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    _HAVE_PALLAS = True
-except Exception:  # pragma: no cover
-    _HAVE_PALLAS = False
-
 BS = 32  # symbols per block
-SB_BLOCKS = 4096  # blocks per superblock on the TPU kernel path
-SB_BLOCKS_SMALL = 256  # CPU/XLA fallback superblock (smaller padding)
-ALIGN = 1024  # word alignment of superblock offsets (1D HBM tile size)
+# Superblock sizes in blocks (format parameters recorded in each blob):
+# streams of at least SB_BLOCKS * 32 symbols use SB_BLOCKS, smaller ones
+# SB_BLOCKS_SMALL (less padding).
+SB_BLOCKS = 4096
+SB_BLOCKS_SMALL = 256
 
 _MAGIC = b"BFX2"
 _HDR = "<4sQQII"
@@ -116,7 +103,7 @@ def _widths_from_zt(zt):
 
 
 # ----------------------------------------------------------------------
-# Merge / split trees (shared by the Pallas kernel and the XLA fallback).
+# Merge / split trees.
 # Streams-as-rows: x (S, cap) uint32, lens (S, 1) int32. Pairing (i, i+S/2).
 # ----------------------------------------------------------------------
 def _merge_level(x, lens):
@@ -124,12 +111,7 @@ def _merge_level(x, lens):
     S, cap = x.shape
     half = S // 2
     left = x[:half]
-    if half < 8:
-        # a [half:] slice of a sub-tile row range carries a sublane offset
-        # Mosaic can't concat with; a roll materializes an offset-free copy
-        right = jnp.roll(x, -half, axis=0)[:half]
-    else:
-        right = x[half:]
+    right = x[half:]
     llen = lens[:half]
     rlen = lens[half:]
     cap2 = 2 * cap
@@ -175,8 +157,7 @@ def _lens_chain(w_rows):
 
 def _pack_superblock(zt_cols, w_cols):
     """Full per-superblock pack: zt (32, S) symbol rows + (1, S) widths ->
-    (condensed (1, S*32) stream, total words (1,1)). Runs identically inside
-    the Pallas kernel (VMEM values) and in the XLA fallback."""
+    (condensed (1, S*32) stream, total words (1,1))."""
     S = zt_cols.shape[1]
     planes = _bit_transpose32(zt_cols)  # (32, S) plane rows
     # to streams-as-rows: stream b = column b of planes -> row b
@@ -203,97 +184,7 @@ def _unpack_superblock(stream, w_cols):
 
 
 # ----------------------------------------------------------------------
-# Pallas kernels (TPU): whole superblock pack/unpack + placement DMA
-# ----------------------------------------------------------------------
-def _encode_kernel(offs_ref, zt_ref, w_ref, out_ref, scratch, sem):
-    stream, _ = _pack_superblock(zt_ref[...], w_ref[...])
-    S = w_ref.shape[1]
-    scratch[...] = stream.reshape(S * 32 // 128, 128)
-    i = pl.program_id(0)
-    off_rows = pl.multiple_of(offs_ref[i], ALIGN // 128)
-    dma = pltpu.make_async_copy(
-        scratch, out_ref.at[pl.ds(off_rows, S * 32 // 128), :], sem
-    )
-    dma.start()
-    dma.wait()
-
-
-def _decode_kernel(offs_ref, flat_ref, w_ref, out_ref, scratch, sem):
-    i = pl.program_id(0)
-    S = w_ref.shape[1]
-    rows = S * 32 // 128
-    off_rows = pl.multiple_of(offs_ref[i], ALIGN // 128)
-    dma = pltpu.make_async_copy(
-        flat_ref.at[pl.ds(off_rows, rows), :], scratch, sem
-    )
-    dma.start()
-    dma.wait()
-    stream = scratch[...].reshape(1, S * 32)
-    out_ref[...] = _unpack_superblock(stream, w_ref[...])
-
-
-def _encode_pallas(zt, w, sb_offs, sb_blocks: int, out_rows: int):
-    """zt (32, NB) u32, w (NB,) i32, sb_offs (NSB,) ROW offsets (word
-    offset / 128, ALIGN/128-aligned). Returns flat words (out_rows, 128)."""
-    NB = zt.shape[1]
-    NSB = NB // sb_blocks
-    cap_rows = sb_blocks * 32 // 128
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(NSB,),
-        in_specs=[
-            pl.BlockSpec((32, sb_blocks), lambda i, offs: (i * 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, sb_blocks), lambda i, offs: (i * 0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pltpu.ANY),
-        scratch_shapes=[
-            pltpu.VMEM((cap_rows, 128), jnp.uint32),
-            pltpu.SemaphoreType.DMA,
-        ],
-    )
-    return pl.pallas_call(
-        _encode_kernel,
-        out_shape=jax.ShapeDtypeStruct((out_rows, 128), jnp.uint32),
-        grid_spec=grid_spec,
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-    )(sb_offs, zt, w.reshape(1, NB).astype(jnp.int32))
-
-
-def _decode_pallas(flat2d, w, sb_offs, sb_blocks: int):
-    """flat2d (rows, 128) u32 (with >= cap slack rows), w (NB,), offsets ->
-    zt (32, NB)."""
-    NB = w.shape[0]
-    NSB = NB // sb_blocks
-    cap_rows = sb_blocks * 32 // 128
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(NSB,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.ANY),
-            pl.BlockSpec((1, sb_blocks), lambda i, offs: (i * 0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((32, sb_blocks), lambda i, offs: (i * 0, i),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((cap_rows, 128), jnp.uint32),
-            pltpu.SemaphoreType.DMA,
-        ],
-    )
-    return pl.pallas_call(
-        _decode_kernel,
-        out_shape=jax.ShapeDtypeStruct((32, NB), jnp.uint32),
-        grid_spec=grid_spec,
-        compiler_params=pltpu.CompilerParams(
-            has_side_effects=True, vmem_limit_bytes=32 * 1024 * 1024
-        ),
-    )(sb_offs, flat2d, w.reshape(1, NB).astype(jnp.int32))
-
-
-# ----------------------------------------------------------------------
-# XLA fallback (CPU oracle): same algorithm, vmapped over superblocks
+# Superblock pack / unpack, vmapped over superblocks
 # ----------------------------------------------------------------------
 def _encode_xla(zt, w, sb_offs, sb_blocks: int, out_rows: int):
     NB = zt.shape[1]
@@ -333,13 +224,10 @@ def _decode_xla(flat2d, w, sb_offs, sb_blocks: int):
 # ----------------------------------------------------------------------
 # Device cores
 # ----------------------------------------------------------------------
-def _use_pallas() -> bool:
-    return jax.default_backend() == "tpu"
-
-
-@partial(jax.jit, static_argnums=(1, 2, 3))
-def encode_core(sym_padded, sb_blocks: int, use_pallas: bool, align: int = ALIGN):
-    """sym_padded: (N,) int32, N a multiple of sb_blocks*32.
+@partial(jax.jit, static_argnums=(1,))
+def encode_core(sym_padded, sb_blocks: int):
+    """sym_padded: (N,) int32, N a multiple of sb_blocks*32. Superblocks
+    are packed back to back (alignment 1).
 
     Returns (words2d (rows,128) uint32, widths (NB,) int32, total_words
     scalar int32). Rows beyond the total are deterministic zeros except the
@@ -352,19 +240,15 @@ def encode_core(sym_padded, sb_blocks: int, use_pallas: bool, align: int = ALIGN
     zt = zz.reshape(NB, BS).T  # (32, NB)
     w = _widths_from_zt(zt)  # (NB,)
     sb_lens = jnp.sum(w.reshape(NSB, sb_blocks), axis=1, dtype=jnp.int32)
-    sb_alens = (sb_lens + (align - 1)) // align * align
-    sb_offs = (jnp.cumsum(sb_alens) - sb_alens).astype(jnp.int32)
-    total = (sb_offs[-1] + sb_alens[-1]).astype(jnp.int32)
+    sb_offs = (jnp.cumsum(sb_lens) - sb_lens).astype(jnp.int32)
+    total = (sb_offs[-1] + sb_lens[-1]).astype(jnp.int32)
     out_rows = (NSB + 1) * cap // 128  # + one superblock of slack
-    if use_pallas:
-        flat2d = _encode_pallas(zt, w, sb_offs // 128, sb_blocks, out_rows)
-    else:
-        flat2d = _encode_xla(zt, w, sb_offs, sb_blocks, out_rows)
+    flat2d = _encode_xla(zt, w, sb_offs, sb_blocks, out_rows)
     return flat2d, w, total
 
 
-@partial(jax.jit, static_argnums=(2, 3, 4))
-def decode_core(flat2d, widths, sb_blocks: int, use_pallas: bool, align: int = ALIGN):
+@partial(jax.jit, static_argnums=(2, 3))
+def decode_core(flat2d, widths, sb_blocks: int, align: int = 1):
     """Inverse of encode_core (flat2d needs >= cap words of slack beyond the
     real total; encode_core's buffer satisfies this)."""
     NB = widths.shape[0]
@@ -372,10 +256,7 @@ def decode_core(flat2d, widths, sb_blocks: int, use_pallas: bool, align: int = A
     sb_lens = jnp.sum(widths.reshape(NSB, sb_blocks), axis=1, dtype=jnp.int32)
     sb_alens = (sb_lens + (align - 1)) // align * align
     sb_offs = (jnp.cumsum(sb_alens) - sb_alens).astype(jnp.int32)
-    if use_pallas:
-        zt = _decode_pallas(flat2d, widths, sb_offs // 128, sb_blocks)
-    else:
-        zt = _decode_xla(flat2d, widths, sb_offs, sb_blocks)
+    zt = _decode_xla(flat2d, widths, sb_offs, sb_blocks)
     zz = zt.T.reshape(NB * BS)
     return _unzigzag(zz)
 
@@ -386,7 +267,7 @@ def decode_core(flat2d, widths, sb_blocks: int, use_pallas: bool, align: int = A
 def _choose_sb(n: int, override=None) -> int:
     if override and n >= override * BS:
         return int(override)
-    return SB_BLOCKS if n >= SB_BLOCKS * BS and _use_pallas() else SB_BLOCKS_SMALL
+    return SB_BLOCKS if n >= SB_BLOCKS * BS else SB_BLOCKS_SMALL
 
 
 def _pad_to(n: int, sb_blocks: int) -> int:
@@ -405,12 +286,8 @@ def encode_device(symbols, sb_blocks=None):
     sym = jnp.asarray(symbols).astype(jnp.int32).ravel()
     if npad != n:
         sym = jnp.concatenate([sym, jnp.zeros(npad - n, jnp.int32)])
-    # small streams take the XLA path with unaligned (tight) superblock
-    # offsets: the 1024-word DMA alignment would dominate their size
-    use_pallas = _use_pallas() and sb_blocks >= SB_BLOCKS
-    align = ALIGN if use_pallas else 1
-    flat2d, w, total = encode_core(sym, sb_blocks, use_pallas, align)
-    return ("bfx", n, sb_blocks, align, flat2d, w, total)
+    flat2d, w, total = encode_core(sym, sb_blocks)
+    return ("bfx", n, sb_blocks, 1, flat2d, w, total)
 
 
 def serialize_device(state) -> bytes:
@@ -449,12 +326,9 @@ def decode(data: bytes, offset: int = 0):
     rows = (total + cap + 127) // 128 + 1  # slack for the padded expand
     wbuf = np.zeros(rows * 128, np.uint32)
     wbuf[:total] = words
-    # Pallas expand needs ALIGN-word offsets; blobs written with a finer
-    # alignment decode through the XLA path (small inputs only).
-    use_pallas = _use_pallas() and align == ALIGN
     sym = decode_core(
         jnp.asarray(wbuf.reshape(rows, 128)), jnp.asarray(widths),
-        sb_blocks, use_pallas, align,
+        sb_blocks, align,
     )
     return sym[:n], p - offset
 

@@ -1,7 +1,7 @@
 """BlockDelta lossless backend: per-block delta + zigzag + fixed-length
 bit-plane packing (cuSZp lineage).
 
-TPU-native re-design of the reference's BlockDelta backend
+A re-design of the reference's BlockDelta backend
 (reference: include/mgard-x/Lossless/BlockDelta/*.hpp, modes at
 Utilities/Types.h:54-58). Unlike Huffman, both encode AND decode are pure
 vectorized integer ops (bit-plane transpose = shift/mask/weighted-sum over a

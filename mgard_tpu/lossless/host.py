@@ -4,7 +4,7 @@ Parity with the reference's host stages: CPU_Lossless
 (reference: include/mgard-x/Lossless/CPU.hpp:92-168 — host zstd of the
 quantized stream) and the Zstd second stage
 (reference: include/mgard-x/Lossless/Zstd.hpp:30-120 — host
-ZSTD_compress/decompress with device staging). On TPU the staging is the
+ZSTD_compress/decompress with device staging). Here the staging is the
 device->host transfer of the already-entropy-coded bytes.
 """
 

@@ -1,4 +1,4 @@
-"""Device Huffman codec (TPU-native re-design of the reference's parallel
+"""Device Huffman codec (a re-design of the reference's parallel
 Huffman stage, include/mgard-x/Lossless/ParallelHuffman/Huffman.hpp:33-640).
 
 Architecture differences from the CUDA lineage (cuSZ):
@@ -12,7 +12,8 @@ Architecture differences from the CUDA lineage (cuSZ):
     <= 16 < 32). Because word indices are a 0/1-increment staircase over
     symbols, per-word sums of contributions are computed as modular cumsum
     differences at group boundaries located with a vectorized bisection —
-    gathers only, no scatter (TPU scatters serialize; gathers vectorize).
+    gathers only, no scatter (scatters serialize on some devices; gathers
+    vectorize).
   * Chunk streams are condensed into one contiguous word stream with a
     marker-cumsum-gather compaction (single C-element scatter + one gather).
   * Decode: one-gather-per-symbol direct LUT (2^max_len entries) canonical

@@ -1,8 +1,8 @@
-"""Monotone canonical Huffman — the TPU-native entropy coder.
+"""Monotone canonical Huffman — the device entropy coder.
 
-A re-design of the Huffman stage around measured TPU primitive costs
-(data-dependent gathers/scatters run ~40M elem/s; elementwise, cumsum and
-associative-scan ops run at memory bandwidth):
+A re-design of the Huffman stage around the cost of data-dependent
+gathers/scatters, which run far below memory bandwidth on some devices,
+while elementwise, cumsum and associative-scan ops run at it:
 
   * The alphabet is zigzag-ranked: quantized MGARD coefficients are unimodal
     around the dictionary origin, so frequency rank ~= zigzag distance
@@ -287,8 +287,8 @@ def encode(symbols, dict_size: int, block_size: int = 1024, sample_cap: int = 1 
     C = (n + K - 1) // K
     npad = C * K - n
 
-    # bincount runs ~0.6 GB/s-effective on TPU (gather-bound); a 256K-sample
-    # histogram keeps the codebook estimate while cutting ~0.9 s at 512^3
+    # bincount is gather-bound; a 256K-sample histogram keeps the codebook
+    # estimate at a fraction of the full pass
     stride = max(1, n // sample_cap)
     hist = np.array(
         _zz_hist_jit(symbols.ravel(), stride, dict_size)

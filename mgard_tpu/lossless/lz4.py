@@ -4,9 +4,8 @@ Replaces round-2's zlib stand-in: a config named LZ4 now runs real LZ4
 (the public block format), implemented in mgard_tpu/native/lz4.cpp. The
 reference's *device* LZ4 kernels (reference: include/mgard-x/Lossless/
 LZ4/LZ4Kernels.hpp, LZ4Fused.hpp) byte-chase through the stream with
-data-dependent trip counts — work the TPU vector ISA cannot express
-profitably (measured: data-dependent gathers run ~75M elem/s vs 100+ GB/s
-for dense ops) — so LZ4 runs host-side here, the same placement the
+data-dependent trip counts — work a whole-array vector program cannot
+express profitably — so LZ4 runs host-side here, the same placement the
 reference gives Zstd.
 """
 

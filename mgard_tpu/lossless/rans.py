@@ -1,6 +1,6 @@
 """Device rANS codec (range asymmetric numeral system).
 
-TPU-native re-design of the reference's rANS backends
+A re-design of the reference's rANS backends
 (reference: include/mgard-x/Lossless/rANS/Rans*.hpp and
 SymbolRans/SymbolRans.hpp:384): 32-bit-state, 16-bit-renormalization rANS
 with a quantized frequency table (2^SCALE_BITS total). Chunks of

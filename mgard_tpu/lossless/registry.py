@@ -32,17 +32,18 @@ def lossless_compress(quantized_flat, config: Config) -> bytes:
 
         lt = _effective_raw_lt(lt, n)
     if lt in (lossless_type.Huffman, lossless_type.Huffman_Zstd, lossless_type.Huffman_LZ4):
-        # Interop-only backend: measured 0.15/0.16 GB/s on-chip at 512^3 —
-        # ~100x below BFP/BFX on BOTH speed and ratio axes (COVERAGE.md
-        # backend table). Kept selectable for reference-stream parity;
-        # warn once so a perf user picking the reference's default class
-        # isn't silently 2 orders of magnitude slow.
+        # Interop-only backend: its device kernels were measured about two
+        # orders of magnitude slower than BFP/BFX on the device this
+        # framework was first built for, with no ratio gain; not measured
+        # on the GPU. Kept selectable for reference-stream parity; warn
+        # once so a perf user picking the reference's default class is not
+        # silently slow.
         from ..utils.log import log as _log
 
         if not getattr(lossless_compress, "_huff_warned", False):
             lossless_compress._huff_warned = True
             _log.warn(
-                "device Huffman is interop-only (~0.15 GB/s on TPU); use "
+                "device Huffman is interop-only (slow); use "
                 "lossless=BFP (speed) or BFX/BFP_Zstd (ratio) for production"
             )
         if getattr(config, "huffman_mono", True):

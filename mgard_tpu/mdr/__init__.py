@@ -1,6 +1,6 @@
 """MDR / MDR-X: progressive multi-precision refactoring and retrieval.
 
-TPU-native re-design of the reference MDR-X component kit
+A re-design of the reference MDR-X component kit
 (reference: include/mgard-x/MDR-X/, public API include/mdr_x.hpp:16-38):
 decompose -> per-level interleave -> bitplane encode (+per-bitplane error
 tables) -> size-interpreted, error-driven progressive retrieval ->

@@ -111,7 +111,7 @@ class RefactoredMetadata:
     # level-major order
     reorganized: bool = False
     # the s-norm the reorganizer's greedy gain used; persisted so readers
-    # recompute the identical segment order (ADVICE r2: an s passed at write
+    # recompute the identical segment order (an s passed at write
     # time but not at read time silently corrupted plane offsets)
     reorg_s: float = float("inf")
     # interleaver mode (reference: MDR-X/Interleaver/: Direct=0,
@@ -414,8 +414,8 @@ def _reconstruct_device(hier: Hierarchy, B: int, counts: tuple,
 
     @jax.jit
     def fn(planes_list, exps):
-        # accumulate in the data dtype: f64 is emulated (slow) on TPU and
-        # adds no accuracy below the dropped-plane error (VERDICT r2 #7)
+        # accumulate in the data dtype: f64 is slow on most accelerators
+        # and adds no accuracy below the dropped-plane error
         dec = jnp.zeros(hier.shape, dtype)
         for l, planes in enumerate(planes_list):
             b = counts[l]

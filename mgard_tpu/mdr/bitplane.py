@@ -1,6 +1,6 @@
 """Device bitplane encoder/decoder with error collection.
 
-TPU-native re-design of the reference BPEncoderRegisterBlock
+A re-design of the reference BPEncoderRegisterBlock
 (reference: include/mgard-x/MDR-X/BitplaneEncoder/BPEncoderRegisterBlock.hpp:15-470
 — per-thread register bit-transpose of 32-element batches) and the
 Max/Squared error collectors (reference: MDR-X/ErrorCollector/).
@@ -9,16 +9,13 @@ Layout: the level stream (n,) is viewed as (32, m) with m = n/32 — element
 i sits at (i // m, i % m) — and ALL planes come out of ONE 32x32
 bit-transpose butterfly over that view. Word j of a plane packs the 32
 elements {j, m+j, 2m+j, ...} (strided), which makes the butterfly input a
-free reshape instead of the (m, 32)+transpose relayout of the round-3
-format (minor-dim-32 arrays are 4x lane-padded in HBM on TPU).
+free reshape instead of an (m, 32)+transpose relayout.
 
 float32 streams quantize integer-exactly with NO f64 pass: the IEEE-754
 bit pattern supplies (mantissa, exponent), and per-element integer shifts
 produce the fixed-point magnitude, the rounding residue (exact, as
-remi * 2^-kc), and the sign — so the CPU (XLA) and TPU (fused Pallas)
-paths are bit-identical. On TPU, quantize + butterfly + all B+1 error
-table entries run in one fused Pallas kernel over VMEM-resident tiles
-(one HBM read of the stream, one write of the planes). float64 streams
+remi * 2^-kc), and the sign — so every device encodes bit-identical
+planes. float64 streams
 take the exact f64 path (error tables bit-match the decoder at rtol
 1e-12). The f32 error tables carry a small relative inflation so they
 remain true upper bounds (matching the reference's data-precision
@@ -37,12 +34,9 @@ from ..lossless.bfx import _bit_transpose32
 
 LANES = 32
 
-# Pallas encode tile: _MC columns of the (32, m) strided view. Streams of
-# >= _PALLAS_MIN elements pad to a whole number of tiles — the SAME
-# padding on every backend, so CPU- and TPU-encoded streams stay
-# byte-identical; smaller levels pad to 32 and use the XLA path.
-_MC = 2048
-_PALLAS_MIN = LANES * _MC
+# Padding policy (a format property): streams of >= _PAD_TILE elements pad
+# to a whole number of _PAD_TILE-element tiles, smaller levels pad to 32.
+_PAD_TILE = LANES * 2048
 
 # conservative inflation of the f32-path error tables: covers the f32
 # residue representation error (2 ulp) and the staged f32 square-sums
@@ -54,8 +48,8 @@ _F32_SLACK_SQ = 1.0 + 1e-4
 
 def padded_len(n: int) -> int:
     """Encoded stream length for a level of n elements (padding policy)."""
-    if n >= _PALLAS_MIN:
-        return n + (-n) % _PALLAS_MIN
+    if n >= _PAD_TILE:
+        return n + (-n) % _PAD_TILE
     return n + (-n) % LANES
 
 
@@ -85,7 +79,7 @@ def _two_stage_sq_sum(d):
 
 
 # ----------------------------------------------------------------------
-# Integer-exact f32 fixed-point quantization (shared XLA / Pallas)
+# Integer-exact f32 fixed-point quantization
 # ----------------------------------------------------------------------
 def _int_quantize_f32(v, exp, frac_bits: int, lim: int):
     """p := |v| * 2^(frac_bits - exp), exactly. Returns
@@ -110,8 +104,7 @@ def _int_quantize_f32(v, exp, frac_bits: int, lim: int):
     mant = jnp.bitwise_and(bits, 0x7FFFFF)
     issub = ebits == 0
     # everything stays in the i32 domain (bit patterns; shifts are
-    # explicitly logical) with pure bitcasts at the signedness switches —
-    # Mosaic has no i32<->u32 convert_element_type
+    # explicitly logical) with pure bitcasts at the signedness switches
     mant24 = jnp.where(issub, mant, jnp.bitwise_or(mant, 0x800000))
     e = jnp.where(issub, jnp.int32(-126), ebits - 127)
     sh = e - 23 + (frac_bits - exp)
@@ -126,7 +119,7 @@ def _int_quantize_f32(v, exp, frac_bits: int, lim: int):
         jax.lax.shift_left(mant24, shl),
         jax.lax.shift_right_logical(mant24 + half, kc),
     )
-    # clamp to lim in SIGNED space (Mosaic has no unsigned vector min):
+    # clamp to lim in SIGNED space:
     # f_unc <= 2^(B-1) <= 2^31, so the only value outside i32 is exactly
     # 2^31, which shows up as a negative i32 — clamp it to lim too
     limi = jnp.int32(lim)
@@ -159,7 +152,7 @@ def scale_tables(err_max_u, err_sq_u, exp: int, B: int,
     """Host-side conversion of unit-space error tables (what the device
     kernels return) to physical units. Done on HOST float64 because the
     physical values scale with amax^2 * n and can exceed the f32-pair
-    range (~3.4e38) of TPU-emulated float64."""
+    range (~3.4e38) of devices that emulate float64 as an f32 pair."""
     s = np.float64(table_scale(exp, B, negabinary))
     return (np.asarray(err_max_u, np.float64) * s,
             np.asarray(err_sq_u, np.float64) * s * s)
@@ -177,101 +170,6 @@ def _sm_residual(fxi, r, B: int, b: int):
         (b < B) & (mag > 0), jnp.int32(1 << max(B - b - 1, 0)), jnp.int32(0)
     )
     return (low - halfb).astype(jnp.float32) + r
-
-
-# ----------------------------------------------------------------------
-# Fused Pallas encode (TPU): quantize + butterfly + error tables, one pass
-# ----------------------------------------------------------------------
-# error-table partial rows per tile: plane b's partials live in sublane
-# row b of a (ROWS_BP, 128) block; ROWS_BP = B+1 padded up to x8 (B <= 32)
-_ROWS_BP = 40
-
-
-def _enc_kernel_body(B: int):
-    sbit = min(B, 31)
-    lim = 2 ** (B - 1) - 1
-
-    def kernel(s_ref, v_ref, zt_ref, emax_ref, esq_ref):
-        exp = s_ref[0]
-        v = v_ref[...]  # (32, _MC) f32
-        mag, remi, kc, sign = _int_quantize_f32(v, exp, B - 1, lim)
-        combined = jnp.bitwise_or(
-            mag,
-            jax.lax.bitcast_convert_type(sign, jnp.uint32)
-            << jnp.uint32(sbit),
-        )
-        zt_ref[...] = _bit_transpose32(combined)
-        fxi = jax.lax.bitcast_convert_type(mag, jnp.int32)
-        r = _residue_f32(remi, kc)
-        # per-plane LANE-LOCAL partials: scalar tree reductions per b were
-        # the whole stage cost (two per plane, ~2(B+1) in-lane shuffle
-        # trees per tile). Instead reduce sublanes (cheap) and fold the
-        # _MC lanes to 128 with elementwise chunk ops; the cross-lane
-        # finish happens ONCE, outside the kernel, on (G, ROWS, 128).
-        emax_ref[0] = jnp.zeros((_ROWS_BP, 128), jnp.float32)
-        esq_ref[0] = jnp.zeros((_ROWS_BP, 128), jnp.float32)
-        for b in range(B + 1):
-            d = _sm_residual(fxi, r, B, b)
-            ab = jnp.abs(d)
-            m1 = jnp.max(ab, axis=0, keepdims=True)  # (1, _MC) sublane max
-            # staged f32 square-sum: 32-term sublane stage + 16-chunk lane
-            # fold + f64 finish outside — total relative error well under
-            # the previous 3.3e-5 (_F32_SLACK_SQ covers it)
-            s1 = jnp.sum(d * d, axis=0, keepdims=True)  # (1, _MC)
-            m128 = m1[:, 0:128]
-            s128 = s1[:, 0:128]
-            for c in range(128, _MC, 128):
-                m128 = jnp.maximum(m128, m1[:, c : c + 128])
-                s128 = s128 + s1[:, c : c + 128]
-            emax_ref[0, b : b + 1, :] = m128
-            esq_ref[0, b : b + 1, :] = s128
-
-    return kernel
-
-
-def _encode_pallas_f32(v2d, exp, B: int):
-    """v2d (32, m) f32 with m % _MC == 0 -> (zt (32, m) u32,
-    emax (G, 128) f32, esq (G, 128) f32) per-tile table partials."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    m = v2d.shape[1]
-    G = m // _MC
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(G,),
-        in_specs=[
-            pl.BlockSpec((32, _MC), lambda i, s: (i * 0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((32, _MC), lambda i, s: (i * 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, _ROWS_BP, 128), lambda i, s: (i, i * 0, i * 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, _ROWS_BP, 128), lambda i, s: (i, i * 0, i * 0),
-                         memory_space=pltpu.VMEM),
-        ],
-    )
-    return pl.pallas_call(
-        _enc_kernel_body(B),
-        out_shape=[
-            jax.ShapeDtypeStruct((32, m), jnp.uint32),
-            jax.ShapeDtypeStruct((G, _ROWS_BP, 128), jnp.float32),
-            jax.ShapeDtypeStruct((G, _ROWS_BP, 128), jnp.float32),
-        ],
-        grid_spec=grid_spec,
-    )(jnp.reshape(exp, (1,)).astype(jnp.int32), v2d)
-
-
-def _use_pallas(n: int, dtype, B: int) -> bool:
-    return (
-        jax.default_backend() == "tpu"
-        and dtype == jnp.float32
-        and B <= 32
-        and n >= _PALLAS_MIN
-        and n % _PALLAS_MIN == 0
-    )
 
 
 def _sm_planes_from_zt(zt, B: int):
@@ -295,7 +193,7 @@ def encode_kernel(coeff, B: int):
              exp int32 scalar,
              err_max (B+1,), err_sq (B+1,) float64 IN FIXED-POINT UNITS —
              callers apply scale_tables() on host; physical-unit tables can
-             exceed the f32-pair range of TPU-emulated float64)."""
+             exceed the range of an emulated f32-pair float64)."""
     n = coeff.shape[0]
     m = n // LANES
     amax = jnp.max(jnp.abs(coeff))
@@ -333,29 +231,21 @@ def encode_kernel(coeff, B: int):
         return planes, exp, jnp.stack(err_max), jnp.stack(err_sq)
 
     # f32 integer-exact path
-    if _use_pallas(int(n), coeff.dtype, B):
-        zt, emax_p, esq_p = _encode_pallas_f32(
-            coeff.reshape(LANES, m), exp, B
-        )
-        # finish the cross-lane reduction ONCE over every tile's partials
-        em = jnp.max(emax_p[:, : B + 1, :], axis=(0, 2)).astype(jnp.float64)
-        es = jnp.sum(esq_p[:, : B + 1, :].astype(jnp.float64), axis=(0, 2))
-    else:
-        mag, remi, kc, sign = _int_quantize_f32(
-            coeff, exp, B - 1, 2 ** (B - 1) - 1
-        )
-        combined = jnp.bitwise_or(
-            mag, sign.astype(jnp.uint32) << jnp.uint32(min(B, 31))
-        )
-        zt = _bit_transpose32(combined.reshape(LANES, m))
-        fxi = jax.lax.bitcast_convert_type(mag, jnp.int32)
-        r = _residue_f32(remi, kc)
-        em_l, es_l = [], []
-        for b in range(B + 1):
-            d = _sm_residual(fxi, r, B, b)
-            em_l.append(jnp.max(jnp.abs(d)).astype(jnp.float64))
-            es_l.append(_two_stage_sq_sum(d))
-        em, es = jnp.stack(em_l), jnp.stack(es_l)
+    mag, remi, kc, sign = _int_quantize_f32(
+        coeff, exp, B - 1, 2 ** (B - 1) - 1
+    )
+    combined = jnp.bitwise_or(
+        mag, sign.astype(jnp.uint32) << jnp.uint32(min(B, 31))
+    )
+    zt = _bit_transpose32(combined.reshape(LANES, m))
+    fxi = jax.lax.bitcast_convert_type(mag, jnp.int32)
+    r = _residue_f32(remi, kc)
+    em_l, es_l = [], []
+    for b in range(B + 1):
+        d = _sm_residual(fxi, r, B, b)
+        em_l.append(jnp.max(jnp.abs(d)).astype(jnp.float64))
+        es_l.append(_two_stage_sq_sum(d))
+    em, es = jnp.stack(em_l), jnp.stack(es_l)
     planes = _sm_planes_from_zt(zt, B)
     return planes, exp, em * _F32_SLACK, es * _F32_SLACK_SQ
 
@@ -369,7 +259,8 @@ def _pow2_scale_f32(x, e):
     here: XLA's algebraic simplifier merges scalar factors — observed in
     the optimized HLO on CPU, where the constant ``2^-(B-1)`` folds onto the
     runtime ``exp2(exp)`` — and the merged scale ``2^(exp-B+1)`` can be
-    subnormal, which FTZ/DAZ execution (XLA CPU fast-math; the TPU VPU)
+    subnormal, which FTZ/DAZ execution (XLA CPU fast-math; GPU flush-to-
+    zero modes)
     flushes to zero, silently zeroing every decoded value of a
     tiny-amplitude level (amax < 2^-118 at B=32). Adding ``e`` to the
     exponent field scales by a power of two exactly, with no fp scale
@@ -398,7 +289,7 @@ def decode_kernel(planes, exp, B: int, b: int, out_dtype=jnp.float64):
     """Reconstruct coefficients from the sign plane + the b leading
     magnitude planes. planes: (>= 1+b, m) uint32. Returns (m*32,) out_dtype
     (f32 output computes in f32 — reconstruction precision beyond the data
-    dtype is unobservable, and f64 is emulated on TPU)."""
+    dtype is unobservable, and f64 is slow on most accelerators)."""
     m = planes.shape[1]
     ft = jnp.dtype(out_dtype)
     sbit = min(B, 31)

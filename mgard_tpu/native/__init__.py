@@ -1,8 +1,8 @@
 """Native (C++) runtime components, built on demand with the system
 toolchain and loaded through ctypes.
 
-The TPU compute path is JAX/XLA/Pallas; host-side byte-chasing work that
-the vector ISA cannot express (LZ4 match search, stream splicing) lives
+The device compute path is JAX/XLA; host-side byte-chasing work that a
+whole-array vector program cannot express (LZ4 match search, stream splicing) lives
 here instead — the same division of labor as the reference's host Zstd
 stage (reference: include/mgard-x/Lossless/Zstd.hpp:30-120).
 

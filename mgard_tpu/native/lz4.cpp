@@ -2,8 +2,8 @@
 //
 // The reference carries a portable *device* LZ4 (reference:
 // include/mgard-x/Lossless/LZ4/LZ4Kernels.hpp, LZ4Fused.hpp). LZ4's
-// byte-serial greedy match search is hostile to the TPU vector ISA (no
-// byte addressing, data-dependent loop trip counts), so in this framework
+// byte-serial greedy match search is hostile to whole-array vector code
+// (byte addressing, data-dependent loop trip counts), so in this framework
 // LZ4 runs where byte chasing is cheap: the host, in native code, as the
 // second stage over already-entropy-coded device output — the same
 // placement as the reference's Zstd stage (Zstd.hpp:30-120).

@@ -1,11 +1,11 @@
-"""Dual-backend primitive shim: NumPy (host reference) / JAX (TPU path).
+"""Dual-backend primitive shim: NumPy (host reference) / JAX (device path).
 
 The reference validates every GPU backend against its SERIAL adapter
 (reference: tests/mgard-x/CMakeLists.txt:12-53 — the serial implementation is
 the oracle). We mirror that: the whole transform is written once against this
 tiny op set; with NumPy inputs it runs eagerly on host (fast, no XLA
 compilation — the correctness oracle), with JAX inputs it traces into the
-fused TPU program.
+fused device program.
 """
 
 from __future__ import annotations
@@ -101,7 +101,7 @@ def linrec(d, f, axis: int, reverse: bool):
     y_i = d_i + f_i * y_{i-1} (or i+1 when reversed).
 
     NumPy: sequential sweep (host oracle). JAX: O(log n)-depth associative
-    scan — the TPU-native evaluation (elements (f,d) compose as
+    scan — the device evaluation (elements (f,d) compose as
     (fa,da)∘(fb,db) = (fa*fb, db + fb*da)).
     """
     if is_np(d):

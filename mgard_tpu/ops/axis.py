@@ -1,6 +1,6 @@
 """Per-axis primitive operators of the multigrid transform.
 
-TPU-native re-design of the reference's GPK/LPK/IPK device kernels
+A re-design of the reference's GPK/LPK/IPK device kernels
 (reference: include/mgard-x/DataRefactoring/MultiDimension/{Coefficient/
 GPKFunctor.h:13-25, Correction/LPKFunctor.h:14-69, Correction/IPKFunctor.h:13-55}).
 Instead of hand-scheduled SIMT functors, each operator is a whole-array
@@ -134,7 +134,7 @@ def tridiag_solve_axis(d, axis: int, al: AxisLevel):
     """Solve the coarse-grid mass-matrix tridiagonal system along `axis`.
 
     Pre-factored Thomas sweeps expressed as two first-order linear
-    recurrences (see _be.linrec — associative scan on TPU, sequential sweep
+    recurrences (see _be.linrec — associative scan on the device, sequential sweep
     in the NumPy oracle). Mirrors reference IPK tridiag_forward2/backward2
     (IPKFunctor.h:13-55):
       forward:  y_i = d_i + fwd_f_i * y_{i-1}

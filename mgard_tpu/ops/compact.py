@@ -1,9 +1,8 @@
 """Scatter-based stream compaction primitives.
 
 jnp.nonzero(size=...) lowers to a searchsorted (log N rounds of large
-gathers) which is pathologically slow on TPU for big arrays (measured 12 s
-for 134M elements). These replacements are single-pass: an exclusive-rank
-cumsum plus one scatter, the TPU-friendly formulation.
+gathers), which is slow for big arrays. These replacements are
+single-pass: an exclusive-rank cumsum plus one scatter.
 """
 
 from __future__ import annotations

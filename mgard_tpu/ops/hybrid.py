@@ -1,7 +1,7 @@
 """Hybrid hierarchy refactoring: blockwise 8^3 local decomposition + global
 refactor of the coarse remainder.
 
-TPU-native re-design of the reference's InCacheBlock/Hybrid stack
+A re-design of the reference's InCacheBlock/Hybrid stack
 (reference: include/mgard-x/DataRefactoring/InCacheBlock/
 Decompose8x8x8.hpp:44-452 - a shared-memory-resident full local
 decomposition with 8->5->3->2 index tables - and
@@ -86,15 +86,15 @@ def _bshape(ndim, axis, n):
 
 def _pos_mask(shape, axis, positions):
     """Periodic position mask computed in-graph from an iota (no captured
-    array constants, so the same code runs inside Pallas kernels)."""
+    array constants)."""
     import jax
     import jax.numpy as jnp
 
     idx = jax.lax.broadcasted_iota(
         jnp.int32, _bshape(len(shape), axis, shape[axis]), axis
     )
-    # keep everything int32: a python-int operand promotes to i64 under
-    # jax_enable_x64 and Mosaic cannot lower 64-bit converts
+    # keep everything int32: a python-int operand would promote to i64
+    # under jax_enable_x64
     r = jax.lax.rem(idx, jnp.int32(8))
     m = r == jnp.int32(positions[0])
     for p in positions[1:]:
@@ -108,7 +108,7 @@ def _interp_pass(x, axis, lvl, dtype):
     npdt = np.dtype(x.dtype).type
     for off_l, off_r, t, positions in _LEVEL_GROUPS[lvl]:
         # typed numpy scalars: under jax_enable_x64 a python float would
-        # trace as f64, which Mosaic cannot convert inside a kernel
+        # trace as f64 and promote the f32 field
         wl = npdt(1.0 - t)
         wr = npdt(t)
         cand = wl * jnp.roll(x, off_l, axis) + wr * jnp.roll(x, -off_r, axis)
@@ -169,18 +169,15 @@ def _rem_cols(num_levels: int):
     return _CHAINS[num_levels]
 
 
-def extract_remainder(v, num_levels: int = 3, axes=None):
+def extract_remainder(v, num_levels: int = 3):
     """Gather each 8-block's local-coarse corner grid into a compact array
-    (static column slices, no gathers). `axes` restricts extraction to a
-    subset of axes (the Pallas kernel extracts the leading axes in VMEM -
-    Mosaic cannot reshape the lane axis - and the caller finishes the
-    minor axis outside)."""
+    (static column slices, no gathers)."""
     import jax.numpy as jnp
 
     cols = _rem_cols(num_levels)
     D = v.ndim
     x = v
-    for d in (range(D) if axes is None else axes):
+    for d in range(D):
         n = x.shape[d]
         g = n // 8
         shp = x.shape[:d] + (g, 8) + x.shape[d + 1 :]
@@ -192,18 +189,15 @@ def extract_remainder(v, num_levels: int = 3, axes=None):
     return x
 
 
-def insert_remainder(coeff_field, rem, num_levels: int = 3, axes=None,
-                     mask_select: bool = True):
+def insert_remainder(coeff_field, rem, num_levels: int = 3):
     """Place remainder values back at their corner positions (zeros
-    elsewhere are preserved from coeff_field). `axes` restricts the
-    expansion to a subset of axes (see extract_remainder); mask_select=False
-    returns the raw expansion without the corner-mask merge."""
+    elsewhere are preserved from coeff_field)."""
     import jax.numpy as jnp
 
     cols = _rem_cols(num_levels)
     D = coeff_field.ndim
     x = rem
-    for d in (range(D) if axes is None else axes):
+    for d in range(D):
         m = x.shape[d]
         g = m // len(cols)
         shp = x.shape[:d] + (g, len(cols)) + x.shape[d + 1 :]
@@ -225,8 +219,6 @@ def insert_remainder(coeff_field, rem, num_levels: int = 3, axes=None,
             pieces.append(jnp.zeros(zshp, xr.dtype))
         full = jnp.concatenate(pieces, axis=d + 1)
         x = full.reshape(x.shape[:d] + (g * 8,) + x.shape[d + 1 :])
-    if not mask_select:
-        return x
     mask = corner_mask(coeff_field.shape, num_levels)
     return jnp.where(mask, x, coeff_field)
 
@@ -243,497 +235,19 @@ def corner_mask(shape, num_levels: int = 3):
 
 
 # ----------------------------------------------------------------------
-# Fused Pallas kernels (TPU): the whole local transform (+quantize +
-# remainder split) in ONE memory pass. The 8^3 blocks are halo-free, so
-# tiles aligned to 8 need no neighbor exchange at all - the property the
-# reference exploits with shared-memory-resident blocks
-# (Decompose8x8x8.hpp); here a VMEM tile holds thousands of blocks and the
-# kernel body is the same jnp roll/select code as the XLA path.
+# v2 front-end (hybrid front-end flag 1): the whole cf-side compress
+# front-end as one XLA program — local transform + corner split +
+# quantize + zigzag + z-class grouping + per-chunk width — emitting the
+# u16 BFP payload directly (reference precedent: the fused
+# LevelwiseLinearQuantizerND kernel, LinearQuantization.hpp:21-146).
+# The grouping and the remainder split are index operations that XLA
+# fuses into the surrounding elementwise work.
 # ----------------------------------------------------------------------
-try:
-    import jax
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    _HAVE_PALLAS = True
-except Exception:  # pragma: no cover
-    _HAVE_PALLAS = False
-
-
-def _fwd_kernel_body(nl):
-    def kernel(q_ref, v_ref, sym_ref, rem_ref):
-        import jax.numpy as jnp
-
-        v = v_ref[...]
-        D = v.ndim
-        dec = local_decompose(v, nl)
-        # leading axes only: Mosaic cannot reshape the lane axis; the
-        # caller extracts the minor axis from this partial remainder
-        rem_ref[...] = extract_remainder(dec, nl, axes=range(D - 1))
-        cf = jnp.where(
-            corner_mask(dec.shape, nl), jnp.zeros((), dec.dtype), dec
-        )
-        inv_q = q_ref[0, 0]
-        t = cf * inv_q
-        half = jnp.asarray(0.5, cf.dtype)
-        sym_ref[...] = jnp.trunc(
-            jnp.where(t < 0, t - half, t + half)
-        ).astype(jnp.int32)
-
-    return kernel
-
-
-def _inv_kernel_body(nl):
-    def kernel(q_ref, sym_ref, rem_ref, out_ref):
-        import jax.numpy as jnp
-
-        q = q_ref[0, 0]
-        D = sym_ref.ndim
-        cf = sym_ref[...].astype(q.dtype) * q
-        # rem arrives lane-expanded (zeros at non-corner lanes); finish the
-        # leading-axes expansion and select at the full corner mask
-        rem_full = insert_remainder(cf, rem_ref[...], nl, axes=range(D - 1))
-        out_ref[...] = local_recompose(rem_full, nl)
-
-    return kernel
-
-
-def _tile_shape(shape):
-    """Pick a VMEM tile: full extent on the minor axis, 8 on the leading
-    axes, growing the middle axis while <= ~4MB f32. Returns None when the
-    shape doesn't fit the scheme (caller falls back to XLA)."""
-    D = len(shape)
-    if D > 3 or D < 2 or any(s % 8 for s in shape):
-        return None
-    if shape[-1] % 128:
-        # Mosaic wants a lane-aligned minor dim; unaligned shapes take the
-        # whole-array XLA path
-        return None
-    budget = 1 << 19  # elements (~2MB f32; in+out+scratch fit 16MB VMEM)
-    t = [8] * D
-    t[-1] = shape[-1]
-    if int(np.prod(t)) > budget:
-        return None
-    # grow the second-to-last axis in multiples of 8 divisors
-    d = D - 2
-    size = shape[d]
-    best = 8
-    cand = 8
-    while cand <= size:
-        if size % cand == 0 and int(np.prod(t[:d])) * cand * t[-1] <= budget:
-            best = cand
-        cand *= 2
-    t[d] = best
-    for s, ts in zip(shape, t):
-        if s % ts:
-            return None
-    return tuple(t)
-
-
-def local_transform_fused(v, q_inv, nl: int):
-    """Fused local decompose + corner split + quantize: returns
-    (sym int32 shape(v), rem float shape(v)/8*k). TPU f32 only; returns
-    None when the shape doesn't tile."""
-    shape = v.shape
-    tile = _tile_shape(shape)
-    if tile is None or not _HAVE_PALLAS:
-        return None
-    D = len(shape)
-    if D < 2:
-        return None
-    grid = tuple(s // t for s, t in zip(shape, tile))
-    k = len(_rem_cols(nl))
-    # the kernel extracts leading axes only; the minor axis stays full
-    rem_tile = tuple(t // 8 * k for t in tile[:-1]) + (tile[-1],)
-    rem_shape = tuple(s // 8 * k for s in shape[:-1]) + (shape[-1],)
-
-    import jax.numpy as jnp
-
-    sym, rem_part = pl.pallas_call(
-        _fwd_kernel_body(nl),
-        grid_spec=pl.GridSpec(
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((1, 1), lambda *a: (a[0] * 0,) * 2,
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec(tile, lambda *a: a, memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec(tile, lambda *a: a, memory_space=pltpu.VMEM),
-                pl.BlockSpec(rem_tile, lambda *a: a,
-                             memory_space=pltpu.VMEM),
-            ],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct(shape, jnp.int32),
-            jax.ShapeDtypeStruct(rem_shape, v.dtype),
-        ],
-    )(q_inv.reshape(1, 1), v)
-    # finish: extract the minor axis outside the kernel (tiny array)
-    rem = extract_remainder(rem_part, nl, axes=(D - 1,))
-    return sym, rem
-
-
-def local_inverse_fused(sym, rem, q, nl: int, dtype):
-    """Fused dequantize + corner insert + local recompose."""
-    shape = sym.shape
-    tile = _tile_shape(shape)
-    if tile is None or not _HAVE_PALLAS or len(shape) < 2:
-        return None
-    D = len(shape)
-    grid = tuple(s // t for s, t in zip(shape, tile))
-    k = len(_rem_cols(nl))
-    rem_tile = tuple(t // 8 * k for t in tile[:-1]) + (tile[-1],)
-
-    import jax.numpy as jnp
-
-    # pre-expand the minor axis on the host side of the kernel (cheap: the
-    # partial remainder is 1/4^(D-1) of the data)
-    part_shape = tuple(s // 8 * k for s in shape[:-1]) + (shape[-1],)
-    zeros = jnp.zeros(part_shape, rem.dtype)
-    rem = insert_remainder(zeros, rem, nl, axes=(D - 1,), mask_select=False)
-
-    return pl.pallas_call(
-        _inv_kernel_body(nl),
-        grid_spec=pl.GridSpec(
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((1, 1), lambda *a: (a[0] * 0,) * 2,
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec(tile, lambda *a: a, memory_space=pltpu.VMEM),
-                pl.BlockSpec(rem_tile, lambda *a: a,
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec(tile, lambda *a: a, memory_space=pltpu.VMEM),
-            ],
-        ),
-        out_shape=[jax.ShapeDtypeStruct(shape, dtype)],
-    )(q.reshape(1, 1), sym, rem)[0]
-
-
-# ----------------------------------------------------------------------
-# Fused kernel v2: the whole cf-side compress front-end in ONE pass —
-# local transform + corner split + zclass grouping (a 0/1 permutation
-# matmul on the MXU; exact at HIGHEST precision) + quantize + zigzag +
-# per-chunk width, emitting the u16 BFP payload directly. Kills the
-# separate zigzag/width pass and the grouping relayout of the r3 pipeline
-# (reference precedent: the fused LevelwiseLinearQuantizerND kernel,
-# LinearQuantization.hpp:21-146).
-# ----------------------------------------------------------------------
-def _group_perm_matrix(Z: int):
-    """(Z, Z) f32 0/1 matrix applying zclass_group on the minor axis:
-    grouped[c*g + j] = natural[j*8 + c] (g = Z // 8)."""
-    g = Z // 8
-    P = np.zeros((Z, Z), np.float32)
-    for j in range(Z):
-        jj, c = divmod(j, 8)
-        P[j, c * g + jj] = 1.0
-    return P
-
-
-def _rem_select_matrix(Z: int, nl: int):
-    """(Z, Z//8*k) 0/1 selection matrix pulling each 8-run's remainder
-    columns out of the lane axis. Lane-axis strided slicing is not
-    Mosaic-lowerable, but a selection matmul on the MXU is — and 0/1
-    matmuls are exact at HIGHEST precision."""
-    cols = _rem_cols(nl)
-    k = len(cols)
-    S = np.zeros((Z, Z // 8 * k), np.float32)
-    for g in range(Z // 8):
-        for i, c in enumerate(cols):
-            S[8 * g + c, g * k + i] = 1.0
-    return S
-
-
-def _permute_u16_mxu(flat_i32, P_bf16):
-    """Permute (lead, Z) i32 rows (values <= 0xFFFF) along the LANE axis by
-    a 0/1 permutation matrix on the MXU, as two exact hi/lo byte bf16
-    matmuls (the lossless/bfp.py _sort_mxu trick, applied column-wise).
-    Integers <= 255 are exact in bf16 and each output element is exactly
-    one input element, so the result is bit-exact at ONE bf16 pass per
-    byte — vs the ~6 bf16 passes a Precision.HIGHEST f32 matmul costs."""
-    import jax
-    import jax.numpy as jnp
-
-    hi = jax.lax.shift_right_logical(flat_i32, jnp.int32(8)).astype(
-        jnp.bfloat16
-    )
-    lo = jnp.bitwise_and(flat_i32, jnp.int32(0xFF)).astype(jnp.bfloat16)
-    dn = (((1,), (0,)), ((), ()))
-    gh = jax.lax.dot_general(hi, P_bf16, dn,
-                             preferred_element_type=jnp.float32)
-    gl = jax.lax.dot_general(lo, P_bf16, dn,
-                             preferred_element_type=jnp.float32)
-    return jax.lax.shift_left(
-        gh.astype(jnp.int32), jnp.int32(8)
-    ) | gl.astype(jnp.int32)
-
-
-def _fwd_kernel_v2_body(nl, C, H, Z):
-    CL = C * 32  # lanes per chunk
-
-    def kernel(q_ref, P_ref, S_ref, v_ref, pay_ref, rem_ref, *cw_refs):
-        import jax
-        import jax.numpy as jnp
-
-        v = v_ref[...]
-        D = v.ndim
-        dec = local_decompose(v, nl)
-        # leading axes extract in VMEM; the LANE axis via the selection
-        # matmul (strided lane slices don't lower; 0/1 matmul is exact)
-        rem_lead = extract_remainder(dec, nl, axes=range(D - 1))
-        lead_r = 1
-        for t in rem_lead.shape[:-1]:
-            lead_r *= t
-        rem_ref[...] = jax.lax.dot_general(
-            rem_lead.reshape(lead_r, Z), S_ref[...],
-            (((1,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,
-        ).reshape(rem_ref.shape)
-        cf = jnp.where(
-            corner_mask(dec.shape, nl), jnp.zeros((), dec.dtype), dec
-        )
-        # quantize + zigzag FIRST (elementwise — commutes with the group
-        # permutation), then permute the u16 integers with exact byte
-        # matmuls: 2 bf16 MXU passes instead of the 6 a HIGHEST-precision
-        # f32 permutation needs
-        inv_q = q_ref[0, 0]
-        t = cf * inv_q
-        half = jnp.asarray(0.5, t.dtype)
-        sym = jnp.trunc(jnp.where(t < 0, t - half, t + half)).astype(jnp.int32)
-        # zigzag kept in i32 (Mosaic has no unsigned reductions); the bit
-        # pattern is identical to the u32 zigzag
-        zz = (sym << 1) ^ (sym >> 31)
-        # tile-level overflow flag: any symbol over the u16 budget (bit 31
-        # set reads negative; anything > 0xFFFF is over) poisons every
-        # chunk width in the tile to 32 so the caller takes the legacy
-        # path — same contract as the old per-chunk width-from-i32 check
-        over = (jnp.min(zz) < 0) | (jnp.max(zz) > jnp.int32(0xFFFF))
-        lead = 1
-        for s in cf.shape[:-1]:
-            lead *= s
-        grouped = _permute_u16_mxu(
-            zz.reshape(lead, Z) & jnp.int32(0xFFFF), P_ref[...]
-        )
-        # widths on the tile-shaped view (minor dim unchanged by the
-        # reshape; a (lead, 1) -> (8, m) reshape would change the lane dim,
-        # which Mosaic cannot lower)
-        zz3 = grouped.reshape(pay_ref.shape)
-        for h in range(H):
-            blkv = zz3[..., h * CL : (h + 1) * CL]
-            mx = jnp.max(blkv, axis=-1)
-            w = 32 - jax.lax.clz(mx)
-            cw_refs[h][...] = jnp.where(
-                over, jnp.int32(32),
-                jnp.where(mx == 0, jnp.int32(0), w),
-            ).astype(jnp.int32)
-        pay_ref[...] = (zz3 & jnp.int32(0xFFFF)).astype(jnp.uint16)
-
-    return kernel
-
-
-def _tile_shape_v2(shape, vmem_budget_elems=1 << 19):
-    """Tile for the v2 kernel (holds ~5 tile-sized intermediates plus the
-    (Z, Z) permutation matrix in VMEM — the pallas_call raises the Mosaic
-    VMEM limit accordingly). The middle extent must reach 128 (or the full
-    axis) so the per-chunk width outputs satisfy the Pallas block rule
-    (last dim divisible by 128 or equal to the array dim)."""
-    D = len(shape)
-    if D != 3 or any(s % 8 for s in shape):
-        return None
-    Z = shape[-1]
-    if Z % 128 or Z > 1024:
-        return None
-    t = [8, 8, Z]
-    if int(np.prod(t)) > vmem_budget_elems:
-        return None
-    d = 1
-    size = shape[d]
-    best = 8
-    cand = 16
-    while cand <= size:
-        if size % cand == 0 and 8 * cand * Z <= vmem_budget_elems:
-            best = cand
-        cand *= 2
-    t[d] = best
-    if t[d] % 128 and t[d] != size:
-        # long last axes (Z > 512): the doubling loop cannot reach the
-        # 128-wide middle tile inside the base budget, but one (8, 128, Z)
-        # tile is only ~4 MB f32 at Z=1024 — admit exactly that shape
-        # under a raised budget so 768^3/1024-wide fields keep the fused
-        # path (the benched Z<=512 tiles are unchanged)
-        if size % 128 == 0 and 8 * 128 * Z <= (1 << 20):
-            t[d] = 128
-        else:
-            return None
-    for s, ts in zip(shape, t):
-        if s % ts:
-            return None
-    return tuple(t)
-
-
-def local_transform_fused_v2(v, inv_q, nl: int, C: int,
-                             interpret: bool = False):
-    """One-pass cf front-end. Returns (payload u16 shape(v) [zclass-grouped
-    zigzag symbols], cw (NC,) i32 [true u32 chunk widths — width > 16 means
-    the u16 payload truncated that chunk: caller must fall back], rem).
-    None when the shape doesn't fit the scheme. interpret=True runs the
-    kernel in Pallas interpret mode (CPU kernel-parity tests)."""
-    shape = v.shape
-    tile = _tile_shape_v2(shape)
-    if tile is None or not _HAVE_PALLAS:
-        return None
-    Z = shape[-1]
-    CL = C * 32
-    if Z % CL:
-        return None
-    H = Z // CL
-    grid = tuple(s // t for s, t in zip(shape, tile))
-    k = len(_rem_cols(nl))
-    ZR = Z // 8 * k
-    rem_tile = tuple(t // 8 * k for t in tile[:-1]) + (ZR,)
-    rem_shape = tuple(s // 8 * k for s in shape[:-1]) + (ZR,)
-    cw_tile = (tile[0], tile[1])
-    cw_shape = (shape[0], shape[1])
-
-    import jax.numpy as jnp
-
-    P = _group_perm_matrix(Z)
-    S = _rem_select_matrix(Z, nl)
-    outs = pl.pallas_call(
-        _fwd_kernel_v2_body(nl, C, H, Z),
-        grid_spec=pl.GridSpec(
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((1, 1), lambda *a: (a[0] * 0,) * 2,
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec((Z, Z), lambda *a: (a[0] * 0,) * 2,
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((Z, ZR), lambda *a: (a[0] * 0,) * 2,
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec(tile, lambda *a: a, memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec(tile, lambda *a: a, memory_space=pltpu.VMEM),
-                pl.BlockSpec(rem_tile, lambda *a: a, memory_space=pltpu.VMEM),
-            ] + [
-                pl.BlockSpec(cw_tile, lambda *a: a[:2],
-                             memory_space=pltpu.VMEM)
-                for _ in range(H)
-            ],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct(shape, jnp.uint16),
-            jax.ShapeDtypeStruct(rem_shape, v.dtype),
-        ] + [
-            jax.ShapeDtypeStruct(cw_shape, jnp.int32) for _ in range(H)
-        ],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(inv_q.reshape(1, 1), jnp.asarray(P, jnp.bfloat16), jnp.asarray(S), v)
-    pay, rem = outs[0], outs[1]
-    cws = outs[2:]
-    # natural chunk order = (x, y, h): stack the H per-half planes on a new
-    # minor axis and ravel (tiny arrays)
-    cw = jnp.stack(cws, axis=-1).reshape(-1)
-    return pay, cw, rem
-
-
-def _inv_kernel_v2_body(nl, Z):
-    def kernel(q_ref, Pt_ref, St_ref, zz_ref, rem_ref, out_ref):
-        import jax
-        import jax.numpy as jnp
-
-        # un-group the u16 zigzag integers with exact byte matmuls (2 bf16
-        # MXU passes) BEFORE un-zigzag/dequantize — the mirror of the
-        # forward kernel's integer-domain permutation
-        zz_g = jax.lax.bitcast_convert_type(
-            zz_ref[...].astype(jnp.uint32), jnp.int32
-        )
-        shp = zz_g.shape
-        lead = 1
-        for s in shp[:-1]:
-            lead *= s
-        zz = _permute_u16_mxu(zz_g.reshape(lead, Z), Pt_ref[...]).reshape(shp)
-        sym = (zz >> 1) ^ -(zz & jnp.int32(1))
-        q = q_ref[0, 0]
-        cf = sym.astype(q.dtype) * q
-        D = cf.ndim
-        # lane-axis remainder expansion via S^T (exact 0/1 matmul; the
-        # mirror of the forward kernel's in-kernel extraction)
-        rem_c = rem_ref[...]
-        lead_r = 1
-        for t in rem_c.shape[:-1]:
-            lead_r *= t
-        rem_lane = jax.lax.dot_general(
-            rem_c.reshape(lead_r, rem_c.shape[-1]), St_ref[...],
-            (((1,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,
-        ).reshape(rem_c.shape[:-1] + (Z,))
-        rem_full = insert_remainder(cf, rem_lane, nl, axes=range(D - 1))
-        out_ref[...] = local_recompose(rem_full, nl)
-
-    return kernel
-
-
-def local_inverse_fused_v2(zz_u16, rem, q, nl: int, dtype,
-                           interpret: bool = False):
-    """Inverse of local_transform_fused_v2: u16 grouped zigzag payload ->
-    field. Ungroup (exact byte-matmul P^T) + un-zigzag + dequantize +
-    corner insert + local recompose in one pass."""
-    shape = zz_u16.shape
-    tile = _tile_shape_v2(shape)
-    if tile is None or not _HAVE_PALLAS:
-        return None
-    Z = shape[-1]
-    grid = tuple(s // t for s, t in zip(shape, tile))
-    k = len(_rem_cols(nl))
-    ZR = Z // 8 * k
-    rem_tile = tuple(t // 8 * k for t in tile[:-1]) + (ZR,)
-
-    import jax.numpy as jnp
-
-    Pt = _group_perm_matrix(Z).T.copy()
-    St = _rem_select_matrix(Z, nl).T.copy()
-    return pl.pallas_call(
-        _inv_kernel_v2_body(nl, Z),
-        grid_spec=pl.GridSpec(
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((1, 1), lambda *a: (a[0] * 0,) * 2,
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec((Z, Z), lambda *a: (a[0] * 0,) * 2,
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((ZR, Z), lambda *a: (a[0] * 0,) * 2,
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec(tile, lambda *a: a, memory_space=pltpu.VMEM),
-                pl.BlockSpec(rem_tile, lambda *a: a, memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec(tile, lambda *a: a, memory_space=pltpu.VMEM),
-            ],
-        ),
-        out_shape=[jax.ShapeDtypeStruct(shape, dtype)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(q.reshape(1, 1), jnp.asarray(Pt, jnp.bfloat16), jnp.asarray(St),
-      zz_u16, rem)[0]
-
-
 def local_transform_v2_xla(v, inv_q, nl: int, C: int):
-    """Plain-XLA oracle for local_transform_fused_v2: bit-identical
-    (payload, cw, rem) via whole-array ops for in-budget data (every chunk
-    width <= 16). On u16 overflow the granularity intentionally differs:
-    the kernel poisons the whole TILE's widths to 32 while this oracle
-    reports true per-chunk widths — both exceed 16, so the caller takes
-    the same legacy fallback either way. Used by the CPU test suite to pin
-    the Pallas kernel's output and as the compress-side reference for the
-    wire format."""
+    """One-pass cf front-end. Returns (payload u16 shape(v) [z-class
+    grouped zigzag symbols], cw (NC,) i32 [true u32 chunk widths — a width
+    over 16 means the u16 payload truncated that chunk and the caller
+    must fall back to the flag-0 layout], rem [compact corner remainder])."""
     import jax
     import jax.numpy as jnp
 
@@ -760,10 +274,9 @@ def local_transform_v2_xla(v, inv_q, nl: int, C: int):
 
 
 def local_inverse_v2_xla(zz_u16, rem, q, nl: int, dtype):
-    """Plain-XLA inverse of the v2 payload: lets a host WITHOUT the TPU
-    Pallas path (CPU decode of a TPU-written stream) reconstruct v2 blobs,
-    and doubles as the kernel-parity oracle. The reference's CPU/GPU
-    decoders are likewise interchangeable per stream
+    """Inverse of local_transform_v2_xla: u16 grouped zigzag payload +
+    compact remainder -> field. Every device decodes every stream, as the
+    reference's CPU/GPU decoders are interchangeable per stream
     (compress_internal.cpp:5-13 header dispatch)."""
     import jax.numpy as jnp
 
@@ -814,201 +327,14 @@ def zclass_ungroup(sym):
 
 
 # ----------------------------------------------------------------------
-# v3: ONE fused kernel per direction — local transform + quantize +
-# zigzag + group + width + in-kernel sort plan + banded BFP pack (and the
-# exact mirror on decode). Each (8, 128, Z) tile IS one BFP superblock
-# (sb = 32*Z blocks, sbc = 1024 chunks of C = Z/32 blocks), so the u16
-# payload NEVER round-trips HBM between the transform and the codec and
-# the plan needs no cross-superblock scan: every residual slot is a
-# static CAP-row block (bfp._band_geometry static_cap layout). The wire
-# bytes match the v2 blob exactly except the chunk ORDER is tile-major
-# (recorded as hybrid front-end flag 2 in the stream).
-# Reference precedent for the fusion: LinearQuantization.hpp:21-146 fuses
-# level lookup + quantize + outlier capture into one kernel; this takes
-# the same idea through the entire lossless pack.
+# v3 streams (hybrid front-end flag 2, decode only): each (8, 128, Z) tile
+# of the field is one BFP superblock (sb = 32*Z blocks, sbc = 1024 chunks
+# of C = Z/32 blocks) with every residual band in a static CAP-row slot
+# (bfp._band_geometry static_cap layout); the chunk order is tile-major.
+# Wire bytes otherwise match the flag-1 cf stream.
 # ----------------------------------------------------------------------
-def _v3_geom(Z, E):
-    C = Z // 32
-    sb = 32 * Z
-    sbc = 1024
-    PR = sb // 128
-    CAP = E * PR
-    BPR = sbc // 128
-    return C, sb, sbc, PR, CAP, BPR
-
-
-def _v3_plan_kernel(crl_row, E, U_ref):
-    """In-kernel replica of bfp._sort_plan's RANK for ONE superblock.
-    crl_row: (1, sbc) i32 in [0, E]. U_ref: (sbc, sbc) bf16 strictly-upper
-    ones (exclusive lane-prefix sums as one exact MXU pass: 0/1 values,
-    counts <= sbc are exact in the f32 accumulator). Returns the stable
-    descending counting-sort rank (1, sbc) i32 — bit-identical to
-    bfp._sort_plan (pinned by tests/test_hybrid_v3.py)."""
-    import jax
-    import jax.numpy as jnp
-
-    sbc = crl_row.shape[-1]
-    dn = (((1,), (0,)), ((), ()))
-    rank = jnp.zeros((1, sbc), jnp.int32)
-    cnt_gt = jnp.int32(0)
-    for k in range(E, -1, -1):
-        eq_b = crl_row == k
-        # casts go THROUGH bool: a direct i32<->bf16 convert_element_type
-        # recurses in Mosaic's convert helper (same workaround as
-        # bfp._sort_mxu)
-        eq = eq_b.astype(jnp.int32)
-        prefix = jax.lax.dot_general(
-            eq_b.astype(jnp.bfloat16), U_ref[...], dn,
-            preferred_element_type=jnp.float32,
-        ).astype(jnp.int32)
-        rank = rank + eq * (cnt_gt + prefix)
-        # bucket total WITHOUT an integer sum-reduction (widens to i64 in
-        # the Mosaic proxy lowering) or a f32 one (hits a relayout bug):
-        # the inclusive prefix is nondecreasing, so its max IS the count —
-        # and i32 max full-reductions are the production-proven pattern
-        cnt_gt = cnt_gt + jnp.max(prefix + eq)
-    return rank
-
-
-def _fwd_kernel_v3_body(nl, Z, K, E):
-    from ..lossless import bfp as _bfp
-
-    C, sb, sbc, PR, CAP, BPR = _v3_geom(Z, E)
-
-    def kernel(q_ref, P_ref, S_ref, U_ref, v_ref, base_ref, resid_ref,
-               cw_ref, rem_ref):
-        import jax
-        import jax.numpy as jnp
-
-        v = v_ref[...]
-        D = v.ndim
-        dec = local_decompose(v, nl)
-        rem_lead = extract_remainder(dec, nl, axes=range(D - 1))
-        lead_r = 1
-        for t in rem_lead.shape[:-1]:
-            lead_r *= t
-        rem_ref[...] = jax.lax.dot_general(
-            rem_lead.reshape(lead_r, Z), S_ref[...],
-            (((1,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,
-        ).reshape(rem_ref.shape)
-        cf = jnp.where(
-            corner_mask(dec.shape, nl), jnp.zeros((), dec.dtype), dec
-        )
-        inv_q = q_ref[0, 0]
-        t = cf * inv_q
-        half = jnp.asarray(0.5, t.dtype)
-        sym = jnp.trunc(jnp.where(t < 0, t - half, t + half)).astype(jnp.int32)
-        zz = (sym << 1) ^ (sym >> 31)
-        over = (jnp.min(zz) < 0) | (jnp.max(zz) > jnp.int32(0xFFFF))
-        rows = _permute_u16_mxu(
-            zz.reshape(sbc, Z) & jnp.int32(0xFFFF), P_ref[...]
-        )  # (sbc, Z) i32, natural chunk order within the tile
-        mx = jnp.max(rows, axis=-1).reshape(1, sbc)
-        w = 32 - jax.lax.clz(mx)
-        cw = jnp.where(
-            over, jnp.int32(32),
-            jnp.where(mx == 0, jnp.int32(0), w),
-        ).astype(jnp.int32)
-        cw_ref[...] = cw.reshape(1, 1, sbc)
-        # jnp.int32 bounds: python-int clip operands materialize as i64
-        # constants under jax_enable_x64, which Mosaic cannot convert
-        crl = jnp.clip(cw - jnp.int32(K), jnp.int32(0), jnp.int32(E))
-        rank = _v3_plan_kernel(crl, E, U_ref)
-        srt = _bfp._sort_mxu(rows, rank)
-        zt = _bfp._plane_split(
-            jax.lax.bitcast_convert_type(srt, jnp.uint32), C
-        )
-        if K:
-            base_ref[...] = zt[:K].reshape(1, K, C, sbc)
-        # STATIC band slots (j*C + b)*BPR: rows past each band's valid
-        # prefix hold zero words (the sorted-prefix invariant), so no
-        # in-SB compaction, no OR-spill and — crucially — no dynamic
-        # offsets: in-kernel-computed pl.ds starts chain every slice on
-        # the scalar unit and serialized the band loop (measured 3x on
-        # decode)
-        bands = []
-        for j in range(E):
-            for b in range(C):
-                bands.append(zt[K + j, b].reshape(BPR, 128))
-        resid_ref[...] = jnp.concatenate(bands, axis=0)
-
-    return kernel
-
-
-def local_transform_pack_v3(v, inv_q, nl: int, K: int, E: int,
-                            interpret: bool = False):
-    """Fused v3 compress device phase: field -> (base (NSB,K,C,sbc) u32,
-    resid (NSB*CAP, 128) u32 [static-slot banded layout], cw (NSB, sbc)
-    i32 [true widths, tile-major chunk order], rem). None when the shape
-    does not admit the (8, 128, Z) tile/superblock scheme."""
-    shape = v.shape
-    if not v3_ok_shape(shape) or not _HAVE_PALLAS:
-        return None
-    Z = shape[-1]
-    C, sb, sbc, PR, CAP, BPR = _v3_geom(Z, E)
-    GX, GY = shape[0] // 8, shape[1] // 128
-    NSB = GX * GY
-    k = len(_rem_cols(nl))
-    ZR = Z // 8 * k
-    tile = (8, 128, Z)
-    rem_tile = tuple(t // 8 * k for t in tile[:-1]) + (ZR,)
-    rem_shape = tuple(s // 8 * k for s in shape[:-1]) + (ZR,)
-
-    import jax.numpy as jnp
-
-    P = _group_perm_matrix(Z)
-    S = _rem_select_matrix(Z, nl)
-    U = np.triu(np.ones((sbc, sbc), np.float32), 1)
-    grid = (GX, GY)
-    outs = pl.pallas_call(
-        _fwd_kernel_v3_body(nl, Z, K, E),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=0,
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((1, 1), lambda gx, gy: (gx * 0, gx * 0),
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec((Z, Z), lambda gx, gy: (gx * 0, gx * 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((Z, ZR), lambda gx, gy: (gx * 0, gx * 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((sbc, sbc), lambda gx, gy: (gx * 0, gx * 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec(tile, lambda gx, gy: (gx, gy, gx * 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec((1, max(K, 1), C, sbc),
-                             lambda gx, gy, GY=GY: (gx * GY + gy, gx * 0, gx * 0, gx * 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((CAP, 128),
-                             lambda gx, gy, GY=GY: (gx * GY + gy, gx * 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, 1, sbc),
-                             lambda gx, gy, GY=GY: (gx * GY + gy, gx * 0, gx * 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec(rem_tile, lambda gx, gy: (gx, gy, gx * 0),
-                             memory_space=pltpu.VMEM),
-            ],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct((NSB, max(K, 1), C, sbc), jnp.uint32),
-            jax.ShapeDtypeStruct((NSB * CAP, 128), jnp.uint32),
-            jax.ShapeDtypeStruct((NSB, 1, sbc), jnp.int32),
-            jax.ShapeDtypeStruct(rem_shape, v.dtype),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=128 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(inv_q.reshape(1, 1), jnp.asarray(P, jnp.bfloat16), jnp.asarray(S),
-      jnp.asarray(U, jnp.bfloat16), v)
-    return outs[0], outs[1], outs[2].reshape(NSB, sbc), outs[3]
-
-
 def v3_ok_shape(shape) -> bool:
-    """Shape gate for the fused v3 scheme: 3D, (8, 128, Z) tiles with
+    """Shape gate for the v3 scheme: 3D, (8, 128, Z) tiles with
     128 | Z <= 1024 so one tile is exactly one superblock of 1024 chunks
     (C = Z/32 blocks each)."""
     if len(shape) != 3:
@@ -1018,176 +344,26 @@ def v3_ok_shape(shape) -> bool:
             and Z >= 128)
 
 
-def _inv_kernel_v3_body(nl, Z, K, E):
-    from ..lossless import bfp as _bfp
-
-    C, sb, sbc, PR, CAP, BPR = _v3_geom(Z, E)
-
-    def kernel(q_ref, Pt_ref, St_ref, U_ref, base_ref, crl_ref, resid_ref,
-               rem_ref, out_ref):
-        import jax
-        import jax.numpy as jnp
-
-        crl = crl_ref[...].reshape(1, sbc)
-        rank = _v3_plan_kernel(crl, E, U_ref)
-        rows = [base_ref[...].reshape(max(K, 1), C, sbc)[:K]] if K else []
-        # STATIC band slots — words past each band's valid prefix are zero
-        # by the sorted-prefix invariant (and by deserialize's zero fill),
-        # so neither masking nor dynamic offsets are needed
-        for j in range(E):
-            bands = []
-            for b in range(C):
-                o = (j * C + b) * BPR
-                bands.append(resid_ref[o:o + BPR].reshape(1, 1, sbc))
-            rows.append(jnp.concatenate(bands, axis=1))  # (1, C, sbc)
-        hi = 32 - K - E
-        if hi > 0:
-            rows.append(jnp.zeros((hi, C, sbc), jnp.uint32))
-        zt = jnp.concatenate(rows, axis=0)
-        merged = _bfp._plane_merge(zt, C)  # (sbc, Z) u32 zigzag, sorted
-        nat = _bfp._sort_mxu(
-            jax.lax.bitcast_convert_type(merged, jnp.int32), rank,
-            inverse=True,
-        )  # (sbc, Z) i32, natural tile order
-        zz = _permute_u16_mxu(nat & jnp.int32(0xFFFF), Pt_ref[...])
-        sym = (zz >> 1) ^ -(zz & jnp.int32(1))
-        q = q_ref[0, 0]
-        cf = sym.reshape(out_ref.shape).astype(q.dtype) * q
-        D = cf.ndim
-        rem_c = rem_ref[...]
-        lead_r = 1
-        for t in rem_c.shape[:-1]:
-            lead_r *= t
-        rem_lane = jax.lax.dot_general(
-            rem_c.reshape(lead_r, rem_c.shape[-1]), St_ref[...],
-            (((1,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,
-        ).reshape(rem_c.shape[:-1] + (Z,))
-        rem_full = insert_remainder(cf, rem_lane, nl, axes=range(D - 1))
-        out_ref[...] = local_recompose(rem_full, nl)
-
-    return kernel
-
-
-def unpack_inverse_v3(base, crl, resid, rem, q, nl: int, K: int, E: int,
-                      dtype, shape, interpret: bool = False):
-    """Fused v3 decompress device phase: static-slot banded payload ->
-    field. crl: (NSB, sbc) i32 tile-major residual lengths."""
-    if not v3_ok_shape(shape) or not _HAVE_PALLAS:
-        return None
-    Z = shape[-1]
-    C, sb, sbc, PR, CAP, BPR = _v3_geom(Z, E)
-    GX, GY = shape[0] // 8, shape[1] // 128
-    NSB = GX * GY
-    k = len(_rem_cols(nl))
-    ZR = Z // 8 * k
-    tile = (8, 128, Z)
-    rem_tile = tuple(t // 8 * k for t in tile[:-1]) + (ZR,)
-
-    import jax.numpy as jnp
-
-    Pt = _group_perm_matrix(Z).T.copy()
-    St = _rem_select_matrix(Z, nl).T.copy()
-    U = np.triu(np.ones((sbc, sbc), np.float32), 1)
-    return pl.pallas_call(
-        _inv_kernel_v3_body(nl, Z, K, E),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=0,
-            grid=(GX, GY),
-            in_specs=[
-                pl.BlockSpec((1, 1), lambda gx, gy: (gx * 0, gx * 0),
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec((Z, Z), lambda gx, gy: (gx * 0, gx * 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((ZR, Z), lambda gx, gy: (gx * 0, gx * 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((sbc, sbc), lambda gx, gy: (gx * 0, gx * 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, max(K, 1), C, sbc),
-                             lambda gx, gy, GY=GY: (gx * GY + gy, gx * 0, gx * 0, gx * 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, 1, sbc),
-                             lambda gx, gy, GY=GY: (gx * GY + gy, gx * 0, gx * 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((CAP, 128),
-                             lambda gx, gy, GY=GY: (gx * GY + gy, gx * 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec(rem_tile, lambda gx, gy: (gx, gy, gx * 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec(tile, lambda gx, gy: (gx, gy, gx * 0),
-                             memory_space=pltpu.VMEM),
-            ],
-        ),
-        out_shape=[jax.ShapeDtypeStruct(shape, dtype)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=128 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(q.reshape(1, 1), jnp.asarray(Pt, jnp.bfloat16), jnp.asarray(St),
-      jnp.asarray(U, jnp.bfloat16), base, crl.reshape(NSB, 1, sbc),
-      resid.reshape(NSB * CAP, 128), rem)[0]
-
-
-# ---- tile-major chunk-order helpers + plain-XLA v3 oracles ----
-def field_rows_tilemajor(pay3d):
-    """(X, Y, Z) payload -> (NC, Z) rows in tile-major chunk order (the
-    v3 stream order): tiles of (8, 128) leading positions, row-major
-    within the tile, tiles in (gx, gy) row-major order."""
-    X, Y, Z = pay3d.shape
-    GX, GY = X // 8, Y // 128
-    return (pay3d.reshape(GX, 8, GY, 128, Z).transpose(0, 2, 1, 3, 4)
-            .reshape(GX * GY * 1024, Z))
-
-
 def rows_tilemajor_field(rows, shape):
-    """Inverse of field_rows_tilemajor."""
+    """(NC, Z) rows in tile-major chunk order (the v3 stream order: tiles
+    of (8, 128) leading positions, row-major within the tile, tiles in
+    (gx, gy) row-major order) -> (X, Y, Z) field."""
     X, Y, Z = shape
     GX, GY = X // 8, Y // 128
     return (rows.reshape(GX, GY, 8, 128, Z).transpose(0, 2, 1, 3, 4)
             .reshape(X, Y, Z))
 
 
-def transform_pack_v3_xla(v, inv_q, nl: int, K: int, E: int):
-    """Plain-XLA oracle for local_transform_pack_v3 (same outputs, same
-    static-slot layout): v2 oracle + tile-major reorder +
-    encode_core_zz(static_cap=True)."""
-    from ..lossless import bfp as _bfp
-
-    Z = v.shape[-1]
-    C, sb, sbc, PR, CAP, BPR = _v3_geom(Z, E)
-    pay, cw_rm, rem = local_transform_v2_xla(v, inv_q, nl, C)
-    rows = field_rows_tilemajor(pay)
-
-    import jax.numpy as jnp
-
-    X, Y = v.shape[0], v.shape[1]
-    GX, GY = X // 8, Y // 128
-    # v2 cw is per (x, y) row (H = 1 in the v3 scheme) in row-major order;
-    # reorder to tile-major so the TRUE widths (incl. overflow poison)
-    # ride through
-    cw = (cw_rm.reshape(GX, 8, GY, 128).transpose(0, 2, 1, 3)
-          .reshape(GX * GY, sbc))
-    crl = jnp.clip(cw.reshape(-1), 0, 32)
-    crl = jnp.clip(crl - K, 0, E)
-    base, resid2d, _ = _bfp.encode_core_zz(rows, crl, K, E, sb, False, C,
-                                           static_cap=True)
-    NSB = (v.size // 32) // sb
-    return (base, resid2d[: NSB * CAP], cw, rem)
-
-
 def unpack_inverse_v3_xla(base, crl, resid, rem, q, nl: int, K: int,
                           E: int, dtype, shape):
-    """Plain-XLA inverse of the v3 payload (non-TPU hosts decode v3
-    streams): decode_core_zz(static_cap=True) -> tile-major rows ->
-    row-major field -> v2 XLA inverse."""
+    """Inverse of the v3 payload: decode_core_zz(static_cap=True) ->
+    tile-major rows -> row-major field -> v2 inverse."""
     from ..lossless import bfp as _bfp
 
-    Z = shape[-1]
-    C, sb, sbc, PR, CAP, BPR = _v3_geom(Z, E)
+    C, sb = shape[-1] // 32, 32 * shape[-1]
     NB = int(np.prod(shape)) // 32
     rows = _bfp.decode_core_zz(base, crl.reshape(-1), resid, K, E, sb,
-                               False, NB, C, static_cap=True)
+                               NB, C, static_cap=True)
     pay = rows_tilemajor_field(rows, shape)
     return local_inverse_v2_xla(pay, rem, q, nl, dtype)
+

@@ -1,6 +1,6 @@
 """Error-bound-driven levelwise linear quantization.
 
-TPU-native re-design of the reference LevelwiseLinearQuantizerNDFunctor
+A re-design of the reference LevelwiseLinearQuantizerNDFunctor
 (reference: include/mgard-x/Quantization/LinearQuantization.hpp:21-146):
 one fused elementwise pass over the nested-box decomposed array that
   * looks up each node's level (max over dims of the per-axis level marks),
@@ -10,7 +10,7 @@ one fused elementwise pass over the nested-box decomposed array that
   * captures outliers (|q| outside the dictionary) into a fixed-capacity
     side list (indices + int64 values), replacing them with the zero symbol.
 
-The reference appends outliers with device-wide atomics; on TPU we use a
+The reference appends outliers with device-wide atomics; here we use a
 deterministic masked prefix-capture (jnp.nonzero with static size), which is
 reproducible run-to-run (the reference's atomic order is not).
 
@@ -88,8 +88,7 @@ def quantize_with_scales(
     # copysign(0.5 + |t|, t) truncated (LinearQuantization.hpp:99-104).
     # Implemented via compare/select rather than jnp.copysign: copysign on
     # f64 lowers to a bitcast-convert s64 that XLA's x64-emulation pass
-    # cannot rewrite on TPU ("While rewriting computation to not contain X64
-    # element types ... not implemented").
+    # cannot rewrite on backends that emulate 64-bit types.
     half = jnp.asarray(0.5, dec.dtype)
     q = jnp.trunc(jnp.where(t < 0, t - half, t + half))
 
@@ -105,8 +104,8 @@ def quantize_with_scales(
     mask = ~in_range.ravel()
     count = mask.sum(dtype=jnp.int32)
     n = hier.total_num_elems
-    # single-pass capture (jnp.nonzero's bisection lowering costs seconds at
-    # 512^3 on TPU; see ops/compact.py)
+    # single-pass capture (jnp.nonzero's bisection lowering is slow on big
+    # arrays; see ops/compact.py)
     idx = masked_indices(mask, outlier_cap, n)
     val = jnp.where(
         idx < n,
@@ -158,7 +157,7 @@ def _scales_dense(hier: Hierarchy, quantizers, s_inf: bool, reciprocal: bool, dt
     s = inf: the per-level steps are all equal (reference CalcQuantizers,
     LinearQuantization.hpp:234-298), so the scale is one scalar. Finite s:
     a select chain over the <= l_target+1 levels replaces the table gather
-    (measured ~75M elem/s on TPU vs memory-bandwidth selects)."""
+    (data-dependent gathers run far below memory-bandwidth selects)."""
     scale_tab = _scales(hier, quantizers, s_inf, reciprocal, dtype)
     if s_inf:
         return scale_tab[0]

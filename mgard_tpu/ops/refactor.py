@@ -1,6 +1,6 @@
 """Multilevel decompose / recompose (the MGARD multigrid transform).
 
-TPU-native re-design of the reference MultiDimension DataRefactoring driver
+A re-design of the reference MultiDimension DataRefactoring driver
 (reference: include/mgard-x/DataRefactoring/MultiDimension/
 DataRefactoring.hpp:24-300 — decompose: per level CopyND ->
 CalcCoefficients -> CalcCorrection -> AddND; recompose reverses) and of the
@@ -35,9 +35,9 @@ def _box(v, shape: Sequence[int]):
 def _rot(v):
     """Move axis 0 to the end: (0,1,...,D-1) -> (1,...,D-1,0).
 
-    All per-axis work below runs on axis 0 (sublanes and beyond — measured
-    ~10x faster than slicing the minor/lane axis on TPU); a full transpose
-    between axes costs ~1 pass of HBM traffic and XLA often fuses it into
+    All per-axis work below runs on axis 0 (slicing the minor axis is the
+    slow case on vector hardware); a full transpose between axes costs ~1
+    pass of memory traffic and XLA often fuses it into
     the adjacent elementwise work. This replaces the reference's
     per-dimension kernel specializations (Lpk1/2/3, Ipk1/2/3)."""
     if v.ndim <= 1:
@@ -73,13 +73,10 @@ def _corr_matrix(hier: Hierarchy, l: int, d: int):
     tridiagonal-solve with identity columns — so the ghost-node and
     non-uniform-spacing logic is inherited exactly.
 
-    On TPU the fast path applies A as ONE MXU matmul per axis instead of
-    the VPU slice chains + O(log n) associative-scan sweeps (measured at
-    384^3 f32: the scan-based correction was 66 ms of a 104 ms level;
-    three shrinking matmuls are ~38 GFLOP ~= 2-3 ms). The multigrid
-    correction IS a banded linear operator per axis — the MXU is the
-    native way to apply it (reference equivalent: the Lpk/Ipk kernel
-    pair)."""
+    The fast path applies A as ONE dense matmul per axis instead of slice
+    chains + O(log n) associative-scan sweeps: the multigrid correction IS
+    a banded linear operator per axis, and a matmul unit is the native way
+    to apply it (reference equivalent: the Lpk/Ipk kernel pair)."""
     cache = getattr(hier, "_corr_mats", None)
     if cache is None:
         cache = {}
@@ -98,9 +95,8 @@ def _corr_matrix(hier: Hierarchy, l: int, d: int):
 
 def _interp_matrix(hier: Hierarchy, l: int, d: int):
     """Per-(level, axis) interpolation-pass matrix P (nf x nf): identity at
-    coarse rows, (wl, wr) lerp rows at coefficient positions. Applied on
-    the MXU it replaces the roll+select VPU pass (measured 384^3 f32: the
-    3-axis roll chain was 28 ms; the matmul chain is 0.5 ms)."""
+    coarse rows, (wl, wr) lerp rows at coefficient positions. Applied as a
+    matmul it replaces the roll+select pass."""
     cache = getattr(hier, "_interp_mats", None)
     if cache is None:
         cache = {}
@@ -124,8 +120,7 @@ def _reorder_matrix(hier: Hierarchy, l: int, d: int, inverse: bool = False):
     """Per-(level, axis) split/merge permutation S (nf x nf): rows =
     [evens (+ last node when nf even), odds] — the per-axis piece of the
     nested-box reorder. As a 0/1 matmul at HIGHEST precision it is exact
-    (one unit term per row; bf16x3 decomposition reproduces f32 bitwise)
-    and avoids the stride-2 minor-axis slicing that cost 18 ms/level."""
+    (one unit term per row) and avoids stride-2 minor-axis slicing."""
     cache = getattr(hier, "_reorder_mats", None)
     if cache is None:
         cache = {}
@@ -146,41 +141,29 @@ def _reorder_matrix(hier: Hierarchy, l: int, d: int, inverse: bool = False):
     return S
 
 
-def _apply_axis0_mm(A, x, precision=None):
+def _apply_axis0_mm(A, x):
     """y = A @ x along axis 0, result axis rotated to the end (the _rot
-    convention): composing D of these cycles back to the original order."""
+    convention): composing D of these cycles back to the original order.
+
+    Every operator runs at Precision.HIGHEST: a 3-pass (bf16x3) setting
+    was found NOT exact even for 0/1 permutation rows (reorder-only
+    roundtrip Linf 1.6e-4 vs ~1e-6 all-HIGHEST, a sixth of a 1e-3 budget),
+    and on a GPU HIGHEST keeps float32 matmuls out of TF32."""
     import jax
     import jax.numpy as jnp
 
-    # Default HIGHEST (bf16_6x) — measured roundtrip Linf 1.9e-6 at 512^3
-    # (unit scale) vs 3.2e-4 under HIGH (bf16_3x), which would eat a third
-    # of a tol=1e-3 budget; the bound certificate comes first. Callers pass
-    # HIGH explicitly ONLY for operators whose rows have <= 2 terms
-    # (permutations: bf16x3 reproduces f32 bitwise for one unit term per
-    # row; lerp rows: two products with no cancellation, f32-class) — the
-    # dense correction matrices stay at HIGHEST.
     return _rot(
         jnp.tensordot(
             jnp.asarray(A), x, axes=([1], [0]),
-            precision=precision or jax.lax.Precision.HIGHEST,
+            precision=jax.lax.Precision.HIGHEST,
         )
     )
 
 
-# Precision note (r5, measured at 384^3): HIGH (bf16x3) is NOT exact even
-# for 0/1 permutation rows on this TPU generation — reorder-only at HIGH
-# gave roundtrip Linf 1.6e-4 (vs ~1e-6 all-HIGHEST), i.e. the 3-pass
-# algorithm drops cross terms rather than splitting each operand in three.
-# Decompose at 13.1-15.8 ms under HIGH mixes vs 17.9 ms at HIGHEST was
-# therefore NOT worth the budget: every operator stays at HIGHEST.
-def _prec_band():
-    return None  # default precision (HIGHEST) everywhere
-
-
 def _correction_mm(resid, hier: Hierarchy, l: int):
-    """Fast-path correction: per-axis dense matmuls on the MXU (HIGHEST
-    precision — bf16x3 ~ f32 accuracy; the roundtrip stays exact because
-    recompose applies the identical operator)."""
+    """Fast-path correction: per-axis dense matmuls (HIGHEST precision;
+    the roundtrip stays exact because recompose applies the identical
+    operator)."""
     import jax
     import jax.numpy as jnp
 
@@ -323,7 +306,7 @@ def decompose_level_fast(v, hier: Hierarchy, l: int, orthogonal: bool):
 
     reo = resid
     for d in range(D):
-        reo = _apply_axis0_mm(_reorder_matrix(hier, l, d), reo, _prec_band())
+        reo = _apply_axis0_mm(_reorder_matrix(hier, l, d), reo)
     return _be.update_box(reo, coarse, D)
 
 
@@ -337,7 +320,7 @@ def recompose_level_fast(reo, hier: Hierarchy, l: int, orthogonal: bool):
     resid = resid_reo
     for d in range(D):
         resid = _apply_axis0_mm(_reorder_matrix(hier, l, d, inverse=True),
-                                resid, _prec_band())
+                                resid)
 
     coarse_vals = coarse_box
     if orthogonal:
@@ -349,14 +332,14 @@ def recompose_level_fast(reo, hier: Hierarchy, l: int, orthogonal: bool):
     for d in range(D):
         al = axes[d]
         E = _reorder_matrix(hier, l, d, inverse=True)[:, : al.n_coarse]
-        field = _apply_axis0_mm(E, field, _prec_band())
+        field = _apply_axis0_mm(E, field)
     interp = field
     for d in range(D):
         interp = _apply_axis0_mm(_interp_matrix(hier, l, d), interp)
     return interp + resid
 
 
-# Largest finest-level axis the dense MXU operators are allowed to build.
+# Largest finest-level axis the dense operators are allowed to build.
 # Each per-(level, axis) operator is an (nf x nf) matrix: 4096^2 f32 = 64 MB
 # and an O(nf) work blow-up vs the O(1)-depth slice path, both acceptable;
 # a 131073-sample 1D axis would be a ~68 GB matrix. Long axes (1D signals,

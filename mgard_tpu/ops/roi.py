@@ -10,7 +10,7 @@ coefficient whose basis support intersects the (dilated) ROI, level by
 level, in the same nested-box layout as the decomposed data — so the
 quantizer applies it as one fused per-node multiplier.
 
-detect_roi() below derives the mask automatically: the tpu-native
+detect_roi() below derives the mask automatically: the whole-array
 counterpart of the reference's histogram-driven block selection
 (reference: adaptive_roi.hpp:30-56 hist_blc_coord/filter_hist_blc/amr_gb,
 adaptive_roi.tpp:97-160) — blocks are scored by the mean |multilevel
@@ -142,7 +142,8 @@ def detect_roi(
 ) -> np.ndarray:
     """Derive a region-of-interest node mask from the data itself.
 
-    The reference pipeline re-derived tpu-first (adaptive_roi.hpp:30-56):
+    The reference pipeline re-derived as whole-array ops
+    (adaptive_roi.hpp:30-56):
       1. score first-depth blocks of shape init_bw by mean |coefficient|
          over non-coarsest nodes (filter_hist_blc's histogram weights),
       2. keep the top ceil(thresh[0] * nblocks) blocks,

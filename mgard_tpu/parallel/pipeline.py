@@ -1,13 +1,13 @@
-"""Multi-device compression: subdomains sharded over a TPU mesh.
+"""Multi-device compression: subdomains sharded over a 1-D device mesh.
 
-TPU-native re-design of the reference's scale-out story (reference:
-SURVEY.md §2.13): the reference runs MPI rank-per-GPU with an
-MPI_Allreduce for the global norm (pmdr-x-qoi.cpp:891-935) and otherwise
-fully independent per-rank compression. Here the same structure is one
-shard_map over an ICI mesh: each device transforms, quantizes AND
-entropy-codes (BFX) its subdomain locally; the only cross-device
-communication is an O(1) psum/pmax for the global norm — exactly the
-reference's Allreduce, riding ICI instead of MPI.
+A re-design of the reference's scale-out story (reference: SURVEY.md
+§2.13): the reference runs MPI rank-per-GPU with an MPI_Allreduce for the
+global norm (pmdr-x-qoi.cpp:891-935) and otherwise fully independent
+per-rank compression. Here the same structure is one shard_map over a
+device mesh: each device transforms and quantizes its subdomain locally;
+the only cross-device communication is an O(1) psum/pmax for the global
+norm — exactly the reference's Allreduce, as an XLA collective instead of
+MPI.
 
 Both directions are sharded: compress_sharded writes a standard
 self-describing blob (decompressable by mgard_tpu.decompress), and
@@ -15,7 +15,7 @@ decompress_sharded reads any BFX-backend MultiDim blob back over the mesh.
 Arbitrary leading-dim sizes are supported through a Variable domain
 decomposition (equal chunks on the mesh + one remainder subdomain on the
 single-device path); float32 and float64 both run in their own dtype —
-no silent casting (ADVICE r2).
+no silent casting.
 """
 
 from __future__ import annotations
@@ -103,7 +103,7 @@ def compress_shards_symbols(
     vs: (S, *sub_shape) sharded over `axis`. Returns (symbols (S, n) int32
     still sharded, global norm scalar). The only cross-device communication
     is the O(1) psum/pmax for the norm — the reference's MPI_Allreduce
-    (pmdr-x-qoi.cpp:891-935) riding ICI. extra_norm folds in the norm
+    (pmdr-x-qoi.cpp:891-935) as an XLA collective. extra_norm folds in the norm
     contribution of subdomains outside the mesh (the remainder chunk):
     max for L-inf, sum-of-squares for L2. total_dof is the exact global
     element count for REL-L2 normalization (a remainder subdomain is
@@ -261,10 +261,12 @@ def compress_sharded(
             else:
                 extra_norm = float(_norm_kernel(rem_arr, False, False)) ** 2
 
-    vs = jnp.reshape(
-        jnp.asarray(arr[: n_dev * chunk]), (n_dev,) + sub_shape
-    )
-    vs = jax.device_put(vs, NamedSharding(mesh, P(axis)))
+    # each shard goes to its own device straight from host memory (a
+    # device-resident input is resharded in place)
+    head = arr[: n_dev * chunk]
+    head = (head.reshape((n_dev,) + sub_shape) if isinstance(head, jax.Array)
+            else np.reshape(head, (n_dev,) + sub_shape))
+    vs = jax.device_put(head, NamedSharding(mesh, P(axis)))
     sym, norm = compress_shards_symbols(
         vs, hier, mesh, tol, s, rel, config.normalize_coordinates, axis=axis,
         n_total_subdomains=S, extra_norm=extra_norm,
@@ -278,7 +280,6 @@ def compress_sharded(
     # sections are bytesink parts lists so the final assembly below writes
     # each payload byte once (same single-copy contract as highlevel)
     from ..highlevel import _raw_section_parts
-    from ..highlevel import _sections_wire_minor as _wire_minor
     from ..utils.bytesink import join as _join, parts_size as _psize
 
     sections = []
@@ -327,7 +328,6 @@ def compress_sharded(
         huff_dict_size=config.huff_dict_size,
         huff_block_size=config.huff_block_size,
         block_delta_block_size=config.block_delta_block_size,
-        wire_minor=_wire_minor(sections, config),
     )
     from ..dtypes import compress_status_type as _st
 
@@ -429,17 +429,17 @@ def decompress_sharded(
 
     _fn_cache: dict = {}
 
-    def _make_shard_dec(hier, sb, align, use_pallas, n):
+    def _make_shard_dec(hier, sb, align, n):
         """Per-(shape, layout) jitted decoder, cached so equal batches reuse
         ONE compiled program — a fresh closure per batch defeated the jit
         cache and recompiled the identical shard_map every iteration."""
-        key = (hier.shape, sb, align, use_pallas)
+        key = (hier.shape, sb, align)
         if key in _fn_cache:
             return _fn_cache[key]
 
         def shard_dec(words_b, widths_b, quant):
             def one(wb, wd):
-                sym = bfx.decode_core(wb, wd, sb, use_pallas, align)[:n]
+                sym = bfx.decode_core(wb, wd, sb, align)[:n]
                 dec = Q.dequantize_symbols(
                     sym.reshape(hier.shape), hier, quant.astype(dtype),
                     s_inf,
@@ -481,8 +481,7 @@ def decompress_sharded(
                 words[j, : wbuf.shape[0]] = wbuf
                 widths[j] = wd
             align = decoded[0][3]
-            use_pallas = jax.default_backend() == "tpu" and align == bfx.ALIGN
-            fn = _make_shard_dec(hier, sb, align, use_pallas, n)
+            fn = _make_shard_dec(hier, sb, align, n)
             ws = jax.device_put(
                 jnp.asarray(words), NamedSharding(mesh, P(axis))
             )
@@ -548,7 +547,7 @@ def compress_shards_device(
 
     vs: (S, *subdomain_shape) array, S divisible by mesh size. Each shard is
     decomposed+quantized independently; REL bounds use a global pmax/psum
-    norm (the reference's MPI_Allreduce, on ICI). Returns per-subdomain
+    norm (the reference's MPI_Allreduce, as an XLA collective). Returns per-subdomain
     quantized arrays + outlier info, still sharded.
     """
     s_inf = math.isinf(s)

@@ -16,7 +16,7 @@ For a linear functional Q(u) = sum_i w_i u_i two bounds are available:
     zero, or inf), with non-uniform coords and decomposed domains, and is
     several times tighter than the Hoelder dual.
 compress_qoi() defaults to the multilevel bound, so arbitrary finite s is
-fully supported end-to-end (r2 VERDICT #9).
+fully supported end-to-end.
 """
 
 from __future__ import annotations

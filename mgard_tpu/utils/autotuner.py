@@ -1,6 +1,6 @@
 """Per-shape kernel auto-tuning with a persistent table.
 
-TPU-native analogue of the reference AutoTuner (reference:
+An analogue of the reference AutoTuner (reference:
 include/mgard-x/RuntimeX/AutoTuners/AutoTuner.h:46-118 and the
 mgard-x-autotuner executable, src/mgard-x/Executables/mgard-x-autotuner.cpp):
 the reference profiles every kernel across block-size candidates and writes
@@ -33,8 +33,7 @@ _TABLE_PATH = os.environ.get(
 SB_CANDIDATES = (1024, 2048, 4096, 8192)
 HUFF_BLOCK_CANDIDATES = (512, 1024, 4096)
 # BFP (the deployed default backend) superblock candidates — covers the
-# production default 16384 (r3 VERDICT #4: the tuner must tune the
-# flagship, not just BFX)
+# production default bfp.SB_BLOCKS
 BFP_SB_CANDIDATES = (8192, 16384, 32768)
 
 
@@ -119,30 +118,21 @@ def tune_bfx(n: int, dtype=np.int32, verbose: bool = True) -> dict:
 
     rng = np.random.default_rng(0)
     sym = jnp.asarray((rng.standard_normal(n) * 20).astype(np.int32))
-    on_tpu = jax.default_backend() == "tpu"
     results = {}
     for sb in SB_CANDIDATES:
         if n < sb * 32:
             continue
-        # match encode_device's deployed dispatch exactly: the Pallas path
-        # (and its ALIGN-word placement) only engages at sb >= SB_BLOCKS, so
-        # candidates below that must be timed on the XLA fallback they would
-        # actually run (ADVICE r2: tuned timings must match deployment)
-        use_pallas = on_tpu and sb >= bfx.SB_BLOCKS
-        align = bfx.ALIGN if use_pallas else 1
         npad = (n + sb * 32 - 1) // (sb * 32) * (sb * 32)
         s = sym
         if npad != n:
             s = jnp.concatenate([s, jnp.zeros(npad - n, jnp.int32)])
         try:
             t_enc = _time_device(
-                lambda s=s, sb=sb: bfx.encode_core(s, sb, use_pallas, align)
+                lambda s=s, sb=sb: bfx.encode_core(s, sb)
             )
-            flat, w, _tot = bfx.encode_core(s, sb, use_pallas, align)
+            flat, w, _tot = bfx.encode_core(s, sb)
             t_dec = _time_device(
-                lambda flat=flat, w=w, sb=sb: bfx.decode_core(
-                    flat, w, sb, use_pallas, align
-                )
+                lambda flat=flat, w=w, sb=sb: bfx.decode_core(flat, w, sb)
             )
         except Exception as e:  # candidate not lowerable on this platform
             if verbose:
@@ -173,17 +163,15 @@ def tune_bfp(n: int, verbose: bool = True) -> dict:
     # machinery is exercised like real coefficient data
     mag = np.exp(rng.uniform(0, 6, n))
     sym = jnp.asarray((rng.standard_normal(n) * mag).astype(np.int32))
-    on_tpu = jax.default_backend() == "tpu"
     E0 = bfp.E_DEFAULT
     hcw = np.asarray(bfp._width_hist(sym))
     K0 = bfp.choose_K(hcw, E0)
     results = {}
-    # sweep (sb, chunk): sb trades kernel grid size, chunk trades the
-    # sort-gather row width (dominant cost) against chunk-max ratio
+    # sweep (sb, chunk): sb trades superblock count against per-superblock
+    # work, chunk trades the sort-gather row width against chunk-max ratio
     for sb in BFP_SB_CANDIDATES:
         if n < sb * 32:
             continue
-        use_pallas = on_tpu and sb >= bfp.SB_PALLAS_MIN
         npad = bfp._pad_to(n, sb)
         s = sym
         if npad != n:
@@ -196,13 +184,12 @@ def tune_bfp(n: int, verbose: bool = True) -> dict:
             try:
                 t_enc = _time_device(
                     lambda s=s, sb=sb, cap=exc_cap, C=C: bfp.encode_core(
-                        s, K0, E0, sb, cap, use_pallas, C)
+                        s, K0, E0, sb, cap, C)
                 )
-                out = bfp.encode_core(s, K0, E0, sb, exc_cap, use_pallas, C)
+                out = bfp.encode_core(s, K0, E0, sb, exc_cap, C)
                 t_dec = _time_device(
                     lambda o=out, sb=sb, NB=NB, C=C: bfp.decode_core(
-                        o[0], o[1], o[2], o[4], o[5], K0, E0, sb,
-                        use_pallas, NB, C)
+                        o[0], o[1], o[2], o[4], o[5], K0, E0, sb, NB, C)
                 )
             except Exception as e:  # candidate not lowerable here
                 if verbose:

@@ -6,8 +6,7 @@ once into the final ``bytes`` object. The reference pays this cost in C++
 (Metadata::Serialize memcpys each section once into one malloc'd buffer —
 /root/reference/src/mgard-x/Metadata/Metadata.cpp SerializeAll); the
 eager-``+``/``b"".join`` style this replaces copied the 512^3 payload
-~5x between device fetch and the final blob (~150 ms of pure memcpy and
-page faults on one host core).
+~5x between device fetch and the final blob.
 
 A part is one of
   - ``bytes`` / ``bytearray`` / ``memoryview``  — copied verbatim;
@@ -37,7 +36,7 @@ import numpy as np
 
 # parts write disjoint destination regions, so assembly parallelizes
 # trivially; numpy block copies release the GIL. 0/1 disables (default on
-# single-core rigs); production TPU VMs benefit up to memory bandwidth.
+# single-core hosts); multi-core hosts benefit up to memory bandwidth.
 _THREADS = int(os.environ.get("MGARD_TPU_SERIALIZE_THREADS",
                               min(4, os.cpu_count() or 1)))
 _MIN_PARALLEL_BYTES = 8 << 20

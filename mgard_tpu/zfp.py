@@ -1,6 +1,6 @@
 """ZFP-style transform compressor (fixed-accuracy / fixed-precision).
 
-TPU-native counterpart of the reference's external ZFP low-level compressor
+A counterpart of the reference's external ZFP low-level compressor
 (reference: include/mgard-x/ExternalCompressionLowLevel/ZFP/Compressor.hpp,
 ~3,400 LoC of device kernels, selected by compressor_type::ZFP behind the
 same Compressor interface). The algorithm follows zfp's architecture:
@@ -13,7 +13,7 @@ same Compressor interface). The algorithm follows zfp's architecture:
   * embedded truncation: fixed-accuracy mode drops bitplanes below the
     error budget per block, fixed-precision mode keeps P planes;
   * the truncated integer coefficients are entropy-packed with the BFX
-    bitplane codec (lossless/bfx.py) — the TPU-native substitute for
+    bitplane codec (lossless/bfx.py) — the whole-array substitute for
     zfp's sequential group-tested embedded coding, which is inherently
     bit-serial and hostile to a vector ISA.
 
@@ -112,8 +112,7 @@ def _degree_perm(d: int) -> np.ndarray:
 
 def _apply_perm(x, perm):
     """Static 64-way permutation along axis 1 via column slices (a
-    constant-index gather runs ~75M elem/s on TPU; 4^d static slices are
-    dense)."""
+    constant-index gather is far slower than 4^d dense static slices)."""
     return jnp.stack([x[:, int(i)] for i in perm], axis=1)
 
 
@@ -141,8 +140,8 @@ def _unblockize(blocks, shape, d: int):
     return x.reshape(shape)
 
 
-@partial(jax.jit, static_argnums=(1, 2, 3, 4))
-def _encode_core(v, d: int, mode: int, param: float, use_pallas: bool):
+@partial(jax.jit, static_argnums=(1, 2, 3))
+def _encode_core(v, d: int, mode: int, param: float):
     """Returns (symbols int32 flat degree-ordered, emax (NB,) int32,
     cut (NB,) int32)."""
     q = _Q[d]
@@ -172,7 +171,7 @@ def _encode_core(v, d: int, mode: int, param: float, use_pallas: bool):
         # transform: 2^cut * 2^(emax-q) * AMP <= tol
         budget = math.log2(max(param, 1e-300) / _AMP[d])
         # clamp to 31: int32 shifts by >= 32 are implementation-defined in
-        # XLA (observed on TPU: 1<<33 == 0 but mod-32 elsewhere); clamping
+        # XLA (1<<33 is 0 on some backends, mod-32 on others); clamping
         # the cut down only tightens the bound, and cut=31 already zeroes
         # every magnitude bit of the symbols
         cut = jnp.clip(
@@ -187,9 +186,8 @@ def _encode_core(v, d: int, mode: int, param: float, use_pallas: bool):
     return sym.reshape(-1), emax, cut
 
 
-@partial(jax.jit, static_argnums=(3, 4, 5, 6))
-def _decode_core(sym, emax, cut, d: int, shape: Tuple[int, ...], dtype,
-                 use_pallas: bool):
+@partial(jax.jit, static_argnums=(3, 4, 5))
+def _decode_core(sym, emax, cut, d: int, shape: Tuple[int, ...], dtype):
     q = _Q[d]
     NB = emax.shape[0]
     coeff = sym.reshape(NB, -1)
@@ -235,8 +233,7 @@ def compress_zfp(
         arr = np.pad(arr, [(0, p - s) for s, p in zip(shape, padded)], mode="edge")
     mode = MODE_ACCURACY if tol is not None else MODE_PRECISION
     param = float(tol if tol is not None else precision)
-    use_pallas = jax.default_backend() == "tpu"
-    sym, emax, cut = _encode_core(jnp.asarray(arr), d, mode, param, use_pallas)
+    sym, emax, cut = _encode_core(jnp.asarray(arr), d, mode, param)
     payload = bfx.encode(sym, config)
     emax_h = np.asarray(emax).astype("<i2")
     head = struct.pack(
@@ -271,10 +268,9 @@ def decompress_zfp(blob: bytes, offset: int = 0):
                       min(q + 8, 31)).astype(np.int32)
     else:
         cut = np.full(nb, min(max(0, q + 2 - int(param)), 31), np.int32)
-    use_pallas = jax.default_backend() == "tpu"
     out = _decode_core(
         jnp.asarray(sym), jnp.asarray(emax), jnp.asarray(cut), d, padded,
-        dtype, use_pallas,
+        dtype,
     )
     out = np.asarray(out)[tuple(slice(0, s) for s in shape)]
     return out, p - offset

@@ -4,13 +4,19 @@ Synthetic ion distribution f(t, phi, node, vx, vy) at 5D, f32, eb=1e-3:
 device pipeline GB/s (MultiDim decompose -> quantize -> BFP pack and the
 inverse), bound check, plus the density-QoI factor. The sharded variant
 of the same pipeline is exercised by dryrun_multichip / tests on the
-8-device mesh; this records the single-chip 5D throughput line.
+8-device mesh; this records the single-card 5D throughput line. Device
+times are the best of a few jitted calls, each ended by
+jax.block_until_ready; fails when JAX finds no GPU.
 """
 
+import os
 import sys
 import time
 
 import numpy as np
+
+# the repository root, for mgard_tpu and chip_smoke
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def make_xgc5d(t=12, planes=8, nodes=96, nvx=33, nvy=33, seed=3):
@@ -42,6 +48,12 @@ def main():
     from mgard_tpu.hierarchy import get_hierarchy
     from mgard_tpu.lossless import bfp
 
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        sys.exit(f"bench_5d: JAX found {dev.platform}, not a GPU")
+    from chip_smoke import _nvidia_smi
+
+    print(f"# {dev.device_kind}: {_nvidia_smi()}")
     tol = 1e-3
     v = make_xgc5d()
     shape = v.shape
@@ -54,16 +66,14 @@ def main():
     # (infer_orthogonal_projection(inf) -> False): quantizer 2*tol/(L+1)
     # instead of the orthogonal-projection constant with its 1+3^D = 244
     # divisor at D=5, which over-delivered the bound ~250x at ratio 2.18
-    # (r3 VERDICT #9)
     q = hier.quantizers(tol, float("inf"), 0.0, error_bound_type.ABS,
                         decomposition_type.MultiDim, False)
     quant = jnp.asarray(q)
     vj = jnp.asarray(v)
     N = int(np.prod(shape))
-    sb = bfp.SB_BLOCKS if jax.default_backend() == "tpu" else bfp.SB_BLOCKS_SMALL
+    sb = bfp._choose_sb(N)
     npad = bfp._pad_to(N, sb)
     NB = npad // 32
-    on_tpu = jax.default_backend() == "tpu"
     # production parameter selection (encode_device's logic): K from the
     # chunk-max width histogram, exception bucket sized from it
     E = bfp.E_DEFAULT
@@ -80,79 +90,28 @@ def main():
         sym = H._compress_core_sym(vj, quant, hier, False, True).ravel()
         if npad != N:
             sym = jnp.concatenate([sym, jnp.zeros(npad - N, jnp.int32)])
-        return bfp.encode_core(sym, K, E, sb, exc_cap, on_tpu)
+        return bfp.encode_core(sym, K, E, sb, exc_cap)
 
     @jax.jit
     def decomp(base, crl, resid2d, exc_ids, exc_blocks, quant):
         sym = bfp.decode_core(base, crl, resid2d, exc_ids, exc_blocks,
-                              K, E, sb, on_tpu, NB)[:N]
+                              K, E, sb, NB)[:N]
         return H._decompress_core_sym(sym.reshape(shape), quant, hier, False, True)
 
-    noop = jax.jit(lambda x: x[0, 0, 0, 0, 0] * 1.0)
-    float(noop(vj))
-    floor = 1e9
-    for _ in range(5):
-        t0 = time.perf_counter()
-        float(noop(vj))
-        floor = min(floor, time.perf_counter() - t0)
-
-    # K_INNER executions inside one XLA program (bench.py's method): at
-    # this 50 MB shape the per-rep compute (~ms) is far below the ~21 ms
-    # relay sync floor, so per-rep sync timing measures mostly jitter
-    K_INNER = 8
-
-    def _probe(out):
-        acc = jnp.float32(0)
-        for leaf in jax.tree_util.tree_leaves(out):
-            fl = leaf.ravel()
-            st = max(1, fl.size // 64)
-            acc = acc + fl[::st].astype(jnp.float32).max()
-        return acc
-
-    @jax.jit
-    def comp_k(vj, quant):
-        def body(i, s):
-            # thread the carry through the INPUT FIELD (runtime-1.0
-            # multiply): threading via quant lets XLA hoist the
-            # loop-invariant DECOMPOSE out of the loop (quantize runs
-            # after the transform), which inflated this line ~3x
-            f = jnp.where(s >= jnp.float32(-1e30), jnp.float32(1),
-                          jnp.float32(2))
-            sym = H._compress_core_sym(vj * f, quant, hier, False,
-                                       True).ravel()
-            if npad != N:
-                sym = jnp.concatenate([sym, jnp.zeros(npad - N, jnp.int32)])
-            return _probe(bfp.encode_core(sym, K, E, sb, exc_cap, on_tpu))
-        return jax.lax.fori_loop(0, K_INNER, body, jnp.float32(0))
-
-    @jax.jit
-    def decomp_k(base, crl, resid2d, exc_ids, exc_blocks, quant):
-        def body(i, s):
-            m = jnp.where(s >= jnp.float32(-1e30), jnp.uint32(0),
-                          jnp.uint32(1))
-            b2 = base ^ m.astype(base.dtype)
-            c2 = crl ^ m.astype(crl.dtype)
-            r2 = resid2d ^ m.astype(resid2d.dtype)
-            sym = bfp.decode_core(b2, c2, r2, exc_ids, exc_blocks,
-                                  K, E, sb, on_tpu, NB)[:N]
-            return _probe(H._decompress_core_sym(
-                sym.reshape(shape), quant, hier, False, True))
-        return jax.lax.fori_loop(0, K_INNER, body, jnp.float32(0))
-
-    def timed_k(fn, *a, reps=4):
-        float(fn(*a))
+    def timed(fn, *a, reps=4):
+        jax.block_until_ready(fn(*a))
         best = 1e9
         for _ in range(reps):
             t0 = time.perf_counter()
-            float(fn(*a))
+            jax.block_until_ready(fn(*a))
             best = min(best, time.perf_counter() - t0)
-        return max((best - floor) / K_INNER, 1e-6)
+        return best
 
     out = comp(vj, quant)
-    t_c = timed_k(comp_k, vj, quant)
+    t_c = timed(comp, vj, quant)
     assert int(out[6]) <= exc_cap, "exception bucket overflow in bench"
     rec = decomp(out[0], out[1], out[2], out[4], out[5], quant)
-    t_d = timed_k(decomp_k, out[0], out[1], out[2], out[4], out[5], quant)
+    t_d = timed(decomp, out[0], out[1], out[2], out[4], out[5], quant)
     err = float(jnp.max(jnp.abs(rec - vj)))
     # compacted wire words (serialize strips band row padding): each chunk
     # ships one word per band (CHUNK) per active residual plane (crl)

@@ -1,72 +1,41 @@
 """Throughput/bound lines for the remaining BASELINE.md benchmark
 configs (the 512^3 flagship lives in bench.py, 5D in bench_5d.py, MDR in
-prof_mdr.py):
+prof_mdr.py), on one GPU:
 
   1. 1D 2^20 f64 sinusoid, s=0, eb=1e-3 (ABS, L2 bound) — device
-     pipeline GB/s with the in-program timing loop.
+     pipeline GB/s.
   2. 3D non-uniform (stretched grids on every axis) 256^3 f32, s=inf,
      eb=1e-3 — device pipeline GB/s.
   3. 3D + ROI: compress_roi at 128^3 with a centered box ROI — verifies
      the tightened in-ROI bound and reports the size cost vs plain
-     compression (functional line; the public API is host-coupled on
-     this rig, so no GB/s is claimed).
+     compression (functional line, no GB/s).
 
-Run on the real TPU: python scripts/bench_baseline.py
+Device times are the best of a few jitted calls, each ended by
+jax.block_until_ready. Run: python scripts/bench_baseline.py (fails when
+JAX finds no GPU).
 """
 
 import math
+import os
 import sys
 import time
 
 import numpy as np
 
+# the repository root, for mgard_tpu and chip_smoke
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-def _timed_loop(fn, args, floor, reps=4, k_inner=8):
+
+def _timed(fn, args, reps=4):
     import jax
 
-    float(fn(*args))
+    jax.block_until_ready(fn(*args))
     best = 1e9
     for _ in range(reps):
         t0 = time.perf_counter()
-        float(fn(*args))
+        jax.block_until_ready(fn(*args))
         best = min(best, time.perf_counter() - t0)
-    return max((best - floor) / k_inner, 1e-6)
-
-
-def _loop(core, k_inner=8):
-    """Wrap core(*args) in a fori_loop, threading the carry through
-    EVERY array argument (float: runtime-1.0 multiply; integer:
-    runtime-0 xor). Threading only a late-stage operand (e.g. the
-    quantizer) lets XLA hoist the loop-invariant early stages out of
-    the loop — the transform runs before quantize, so a quant-threaded
-    compress loop times only quantize+encode."""
-    import jax
-    import jax.numpy as jnp
-
-    def run(*args):
-        def body(i, s):
-            f = jnp.where(s >= jnp.float32(-1e30), jnp.float32(1),
-                          jnp.float32(2))
-            m = jnp.where(s >= jnp.float32(-1e30), jnp.uint32(0),
-                          jnp.uint32(1))
-            th = []
-            for a in args:
-                if jnp.issubdtype(a.dtype, jnp.floating):
-                    th.append(a * f.astype(a.dtype))
-                elif a.ndim:
-                    th.append(a ^ m.astype(a.dtype))
-                else:
-                    th.append(a)
-            out = core(*th)
-            acc = jnp.float32(0)
-            for leaf in jax.tree_util.tree_leaves(out):
-                fl = leaf.ravel()
-                st = max(1, fl.size // 64)
-                acc = acc + fl[::st].astype(jnp.float32).max()
-            return acc
-        return jax.lax.fori_loop(0, k_inner, body, jnp.float32(0))
-
-    return jax.jit(run)
+    return best
 
 
 def main():
@@ -79,19 +48,13 @@ def main():
     from mgard_tpu.hierarchy import get_hierarchy
     from mgard_tpu.lossless import bfp
 
-    on_tpu = jax.default_backend() == "tpu"
-    cfg = mgard_tpu.Config()
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        sys.exit(f"bench_baseline: JAX found {dev.platform}, not a GPU")
+    from chip_smoke import _nvidia_smi
 
-    noopv = jnp.zeros((8, 8, 8), jnp.float32)
-    noop = jax.jit(lambda x: x[0, 0, 0] * 1.0)
-    float(noop(noopv))
-    floor = 1e9
-    for _ in range(5):
-        t0 = time.perf_counter()
-        float(noop(noopv))
-        floor = min(floor, time.perf_counter() - t0)
-    print(f"# floor {floor*1e3:.1f} ms backend={jax.default_backend()}",
-          file=sys.stderr)
+    print(f"# {dev.device_kind}: {_nvidia_smi()}", file=sys.stderr)
+    cfg = mgard_tpu.Config()
 
     def device_line(tag, v, hier, s, tol):
         s_inf = math.isinf(s)
@@ -101,9 +64,7 @@ def main():
         quant = jnp.asarray(q)
         vj = jnp.asarray(v)
         N = int(np.prod(v.shape))
-        sb = bfp.SB_BLOCKS if (on_tpu and N >= bfp.SB_BLOCKS * 32) \
-            else bfp.SB_BLOCKS_SMALL
-        use_pl = on_tpu and sb >= bfp.SB_PALLAS_MIN
+        sb = bfp._choose_sb(N)
         npad = bfp._pad_to(N, sb)
         NB = npad // 32
         E = bfp.E_DEFAULT
@@ -118,21 +79,20 @@ def main():
             sym = H._compress_core_sym(vj, quant, hier, orthogonal,
                                        s_inf).ravel()
             sym = jnp.concatenate([sym, jnp.zeros(npad - N, jnp.int32)])
-            return bfp.encode_core(sym, K, E, sb, cap, use_pl)
+            return bfp.encode_core(sym, K, E, sb, cap)
 
         out = jax.jit(comp)(vj, quant)
 
         def decomp(base, crl, resid2d, exc_ids, exc_blocks, quant):
             sym = bfp.decode_core(base, crl, resid2d, exc_ids, exc_blocks,
-                                  K, E, sb, use_pl, NB)[:N]
+                                  K, E, sb, NB)[:N]
             return H._decompress_core_sym(sym.reshape(v.shape), quant,
                                           hier, orthogonal, s_inf)
 
         rec = jax.jit(decomp)(out[0], out[1], out[2], out[4], out[5], quant)
-        t_c = _timed_loop(_loop(comp), (vj, quant), floor)
-        t_d = _timed_loop(
-            _loop(decomp),
-            (out[0], out[1], out[2], out[4], out[5], quant), floor)
+        t_c = _timed(jax.jit(comp), (vj, quant))
+        t_d = _timed(jax.jit(decomp),
+                     (out[0], out[1], out[2], out[4], out[5], quant))
         nbytes = v.nbytes
         resid_w = bfp.CHUNK * int(np.asarray(out[1], np.int64).sum())
         wpb = (resid_w + K * NB + NB / 8) / NB
@@ -172,7 +132,7 @@ def main():
     device_line("3D 256^3 f32 non-uniform s=inf eb=1e-3", v3, hier3,
                 math.inf, 1e-3)
 
-    # ---- 4. 3D 256^3 f64, s=inf (demoted fast path, r4 VERDICT #2) ----
+    # ---- 4. 3D 256^3 f64, s=inf (demoted fast path) ----
     # the production double pipeline: exact f64->f32 cast-error pass +
     # hybrid v2 + BFP in f32, final cast back to f64 — all on device,
     # throughput in f64 bytes (the user's data)
@@ -219,10 +179,10 @@ def main():
                 u32, quantf, padded, nl, rem_hier, C)
             crl_ = jnp.clip(cw - Kf, 0, E)
             cf = bfp.encode_core_zz(
-                pay.reshape(-1, C * 32), crl_, Kf, E, sbf, on_tpu, C)
+                pay.reshape(-1, C * 32), crl_, Kf, E, sbf, C)
             rs = jnp.concatenate(
                 [rem_sym, jnp.zeros(rem_padf - n_remf, jnp.int32)])
-            rem = bfp.encode_core(rs, Krf, E, sbf, 8192, on_tpu)
+            rem = bfp.encode_core(rs, Krf, E, sbf, 8192)
             return cf + (crl_, ec.astype(jnp.float32)) + rem
 
         o = jax.jit(comp64)(v64, quantf)
@@ -233,9 +193,9 @@ def main():
         def dec64(basef, resid2df, crlf, rbasef, rcrlf, rresid2df,
                   rexc_idsf, rexc_blocksf, quantf):
             zz = bfp.decode_core_zz(basef, crlf, resid2df, Kf, E, sbf,
-                                    on_tpu, NBf, C)
+                                    NBf, C)
             rem_sym = bfp.decode_core(rbasef, rcrlf, rresid2df, rexc_idsf,
-                                      rexc_blocksf, Krf, E, sbf, on_tpu,
+                                      rexc_blocksf, Krf, E, sbf,
                                       NBrf)[:n_remf]
             rec32 = H._decompress_core_hybrid_v2(
                 zz, rem_sym, quantf, fshape, padded, nl, rem_hier, C)
@@ -245,8 +205,8 @@ def main():
                  rexc_idsf, rexc_blocksf, quantf)
         rec64 = jax.jit(dec64)(*dargs)
         errf = float(jnp.max(jnp.abs(rec64 - v64)))
-        t_c = _timed_loop(_loop(comp64), (v64, quantf), floor)
-        t_d = _timed_loop(_loop(dec64), dargs, floor)
+        t_c = _timed(jax.jit(comp64), (v64, quantf))
+        t_d = _timed(jax.jit(dec64), dargs)
         nb64 = Nf * 8
         resid_w = C * int(np.asarray(crlf, np.int64).sum())
         wpb = (resid_w + Kf * NBf + NBf / C / 2) / NBf
@@ -258,7 +218,7 @@ def main():
     else:
         print("3D 256^3 f64 demoted: v2 gate failed (unexpected)")
 
-    # ---- 3. ROI line (functional; host-coupled API) ----
+    # ---- 3. ROI line (functional) ----
     nr = 128
     xr = np.linspace(0, 1, nr, dtype=np.float32)
     vr = (np.sin(4 * np.pi * xr)[:, None, None]

@@ -47,7 +47,7 @@ def test_table_persist_and_apply(table_path):
 
 def test_compress_consults_table(table_path, monkeypatch):
     """compress() with the default Config must hit the autotuner lookup
-    (the 'table entry visibly consulted' contract, r3 VERDICT #4)."""
+    (the 'table entry visibly consulted' contract)."""
     calls = []
     real = at.lookup
 

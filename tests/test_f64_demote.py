@@ -4,8 +4,8 @@ When the L-inf budget covers the exact f64->f32 cast error, compress()
 routes double data through the f32 flagship pipeline with the cast error
 deducted from the tolerance; decompress() returns float64 and the ORIGINAL
 double field is within the user's bound. The reference instantiates double
-natively everywhere (reference: include/compress_x.hpp:31-159); on TPU f64
-is an emulated f32 pair, so demotion is the tpu-native double design.
+natively everywhere (reference: include/compress_x.hpp:31-159); demotion
+halves the bytes every stage moves.
 """
 
 import dataclasses

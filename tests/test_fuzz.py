@@ -198,54 +198,17 @@ def test_mdrx_archive_flip_sweep(comp, tmp_path):
 
 
 def _v3_blob():
-    """A flag-2 (fused v3) stream written on CPU via the XLA oracle."""
-    import mgard_tpu.highlevel as H
-    from mgard_tpu.ops import hybrid as Hy
+    """The committed flag-2 (v3) golden stream and a field of its shape
+    (tests/test_hybrid_v3.py documents how it was written)."""
+    import os
 
-    rng = np.random.default_rng(11)
-    shape = (16, 128, 256)
-    x = np.linspace(0, 1, shape[0], dtype=np.float32)
-    v = (
-        np.sin(2 * np.pi * x)[:, None, None]
-        + np.cos(np.linspace(0, 3, shape[1], dtype=np.float32))[None, :, None]
-        * np.linspace(-1, 1, shape[2], dtype=np.float32)[None, None, :]
-        + 0.01 * rng.standard_normal(shape).astype(np.float32)
-    )
-    # production-style K from the oracle widths so the stream really is
-    # flag 2 (an undersized K would take the serializer's fallback)
-    from mgard_tpu.hierarchy import get_hierarchy
-    from mgard_tpu.lossless import bfp as _bfp
-    from mgard_tpu.ops.hybrid import (hybrid_l_total, pad_to8,
-                                      remainder_shape)
-    import jax.numpy as jnp
-
-    padded = pad_to8(shape)
-    rem_hier = get_hierarchy(remainder_shape(padded, 3), np.float32, None,
-                             mgard_tpu.Config())
-    q = H._hybrid_quantizer(1e-3, hybrid_l_total(padded, 3, rem_hier))
-    C = padded[-1] // 32
-    _, cw, _ = Hy.local_transform_v2_xla(jnp.asarray(v),
-                                         jnp.float32(1.0 / q), 3, C)
-    cw_h = np.asarray(cw)
-    hist = np.bincount(np.clip(cw_h, 0, 32), minlength=33)
-    K = max(_bfp.choose_K(hist, 8, C), int(cw_h.max()) - 8)
-    assert K + 8 <= 16, K
-
-    orig_ok, orig_pack = H._hybrid_v3_ok, Hy.local_transform_pack_v3
-    H._hybrid_v3_ok = lambda *a, **k: True
-    Hy.local_transform_pack_v3 = (
-        lambda vv, iq, nl, K, E: Hy.transform_pack_v3_xla(vv, iq, nl, K, E)
-    )
-    try:
-        cfg = mgard_tpu.Config()
-        cfg.bfp_base_planes = K
-        blob, st = mgard_tpu.compress(v, tol=1e-3, config=cfg)
-    finally:
-        H._hybrid_v3_ok, Hy.local_transform_pack_v3 = orig_ok, orig_pack
-    assert int(st) == 0
+    path = os.path.join(os.path.dirname(__file__), "golden",
+                        "hybrid_v3_flag2_16x128x256_f32.mgard")
+    with open(path, "rb") as f:
+        blob = f.read()
     # the flag byte sits 9 bytes before the cf blob's BFP5 magic
-    assert blob[bytes(blob).index(b"BFP5") - 9] == 2
-    return bytes(blob), v
+    assert blob[blob.index(b"BFP5") - 9] == 2
+    return blob, np.zeros((16, 128, 256), np.float32)
 
 
 @pytest.fixture(scope="module")

@@ -1,4 +1,4 @@
-"""4D/5D end-to-end coverage (VERDICT r2: untested dimensions are assumed
+"""4D/5D end-to-end coverage (untested dimensions are assumed
 broken). The reference instantiates and ships D=1..5
 (reference: include/compress_x.hpp:31-159; examples/xgc-casestudy/
 TestXGC4DNonuniform.cpp, TestXGC5DTemporal.cpp)."""

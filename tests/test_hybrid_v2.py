@@ -1,22 +1,22 @@
-"""Hybrid v2 one-pass front-end: kernel/oracle parity and CPU decode.
+"""Hybrid v2 one-pass front-end (hybrid front-end flag 1).
 
-The Pallas kernels run in interpret mode on CPU and must match the
-plain-XLA oracles BIT-EXACTLY (the permutation is integer-domain byte
-matmuls; quantize/zigzag are elementwise), and a v2-layout stream must
-decode on a host without the TPU Pallas backend (reference parity: any
-device decodes any stream, compress_internal.cpp:5-13).
+local_transform_v2_xla must emit exactly the flag-0 transform's symbols
+(zigzagged, z-class grouped, u16) plus true chunk widths, its inverse must
+round-trip, and compress() must write flag 1 for every shape the stream
+format admits — falling back to flag 0 when a chunk needs more than 16
+bits. Any device decodes any stream (reference parity:
+compress_internal.cpp:5-13).
 """
 
-import math
+import struct
 
 import numpy as np
-import pytest
 
-import jax
 import jax.numpy as jnp
 
 import mgard_tpu
 import mgard_tpu.highlevel as H
+from mgard_tpu.formats.metadata import Metadata
 from mgard_tpu.hierarchy import get_hierarchy
 from mgard_tpu.ops import hybrid as Hy
 
@@ -38,64 +38,105 @@ def _field(shape):
     return jnp.asarray(v)
 
 
-def test_fwd_kernel_matches_xla_oracle():
+def _hybrid_flag(blob) -> int:
+    """Front-end flag byte of the first (only) subdomain section."""
+    _meta, off = Metadata.deserialize(blob)
+    return blob[off + 8 + len(H._empty_outliers())]
+
+
+def _hybrid_setup(shape, tol):
+    padded = Hy.pad_to8(shape)
+    rem_hier = get_hierarchy(Hy.remainder_shape(padded, NL), np.float32,
+                             None, mgard_tpu.Config())
+    q = H._hybrid_quantizer(tol, Hy.hybrid_l_total(padded, NL, rem_hier))
+    return padded, rem_hier, jnp.float32(q)
+
+
+def _unzigzag(zz):
+    zz = np.asarray(zz).astype(np.int64)
+    return (zz >> 1) ^ -(zz & 1)
+
+
+def test_v2_symbols_match_flag0_transform():
+    """The v2 payload is the flag-0 front-end's grouped cf symbols in
+    zigzag u16 form, cw their true chunk widths, and the remainder symbols
+    are the flag-0 stream's tail."""
+    padded, rem_hier, q = _hybrid_setup(SHAPE, 1e-3)
     v = _field(SHAPE)
-    inv_q = jnp.float32(1.0 / 1.7e-4)
-    pay_k, cw_k, rem_k = Hy.local_transform_fused_v2(
-        v, inv_q, NL, C, interpret=True
-    )
-    pay_o, cw_o, rem_o = Hy.local_transform_v2_xla(v, inv_q, NL, C)
-    assert int(jnp.max(cw_o)) <= 16, "test field must fit the u16 budget"
-    np.testing.assert_array_equal(np.asarray(pay_k), np.asarray(pay_o))
-    np.testing.assert_array_equal(np.asarray(cw_k), np.asarray(cw_o))
-    np.testing.assert_array_equal(np.asarray(rem_k), np.asarray(rem_o))
+    sym0 = np.asarray(H._compress_core_hybrid(v, q, padded, NL, rem_hier,
+                                              zgroup=True))
+    pay, cw, rem_sym = H._compress_core_hybrid_v2(v, q, padded, NL,
+                                                  rem_hier, C)
+    n_cf = int(np.prod(padded))
+    assert int(jnp.max(cw)) <= 16, "test field must fit the u16 budget"
+    cf1 = _unzigzag(pay).ravel()
+    cf0 = sym0[:n_cf].astype(np.int64)
+    # same arithmetic in two XLA graphs: only one-step flips at .5 ties
+    mism = cf1 != cf0
+    assert mism.mean() < 1e-4, mism.mean()
+    assert np.abs(cf1 - cf0)[mism].max(initial=0) <= 1
+    np.testing.assert_array_equal(np.asarray(rem_sym), sym0[n_cf:])
+    rows = np.asarray(pay).astype(np.int64).reshape(-1, C * 32)
+    mx = rows.max(axis=1)
+    want = np.where(mx == 0, 0, np.floor(np.log2(np.maximum(mx, 1))) + 1)
+    np.testing.assert_array_equal(np.asarray(cw), want.astype(np.int32))
 
 
-def test_inv_kernel_matches_xla_oracle_and_roundtrips():
+def test_v2_inverse_roundtrips():
     v = _field(SHAPE)
     q = jnp.float32(1.7e-4)
     pay, cw, rem_c = Hy.local_transform_v2_xla(v, 1.0 / q, NL, C)
-    # reconstruct the remainder field exactly as decompress does
-    rem_hier = get_hierarchy(Hy.remainder_shape(SHAPE, NL), np.float32, None,
-                             mgard_tpu.Config())
-    # compact (all-axes) remainder -> the inverse consumes it directly
-    out_k = Hy.local_inverse_fused_v2(
-        pay, rem_c.reshape(rem_hier.shape), q, NL, jnp.float32,
-        interpret=True,
-    )
-    out_o = Hy.local_inverse_v2_xla(
-        pay, rem_c.reshape(rem_hier.shape), q, NL, jnp.float32
-    )
-    # ulp-class tolerance: the integer permutation/zigzag stages are
-    # bit-exact (verified eagerly); the remaining delta is XLA fma-fusion
-    # variance between the tile-wise kernel graph and the whole-array
-    # oracle graph (~2 ulp at O(1) values)
-    np.testing.assert_allclose(
-        np.asarray(out_k), np.asarray(out_o), rtol=0, atol=1e-6
-    )
-    # roundtrip: quantization is the only loss; local levels total NL
-    err = float(jnp.max(jnp.abs(out_o - v)))
+    rem_shape = Hy.remainder_shape(SHAPE, NL)
+    out = Hy.local_inverse_v2_xla(pay, rem_c.reshape(rem_shape), q, NL,
+                                  jnp.float32)
+    # the remainder rides exactly, so cf quantization is the only loss
+    err = float(jnp.max(jnp.abs(out - v)))
     assert err <= float(q) * (NL + 2), err
 
 
-def test_fwd_overflow_poisons_widths():
-    """Symbols over the u16 budget must force cw > 16 (legacy fallback)."""
-    v = _field(SHAPE) * 1e6
-    inv_q = jnp.float32(1.0 / 1e-6)  # huge symbols
-    _, cw_k, _ = Hy.local_transform_fused_v2(v, inv_q, NL, C, interpret=True)
-    assert int(jnp.max(cw_k)) > 16
+def test_v2_wide_chunks_fall_back_to_flag0():
+    """Chunks wider than 16 bits cannot ride the u16 payload: compress()
+    must write the flag-0 layout instead, and it must hold the bound."""
+    # noise of amplitude ~5 against a 1e-3 bound: symbols far past 2^15
+    v = np.asarray(_field((64, 64, 128))) * 100
+    tol = 1e-3
+    blob, st = mgard_tpu.compress(v, tol=tol, s=np.inf)
+    assert int(st) == 0
+    assert _hybrid_flag(blob) == 0
+    out, st2 = mgard_tpu.decompress(blob)
+    assert int(st2) == 0
+    assert float(np.max(np.abs(out.astype(np.float64) - v))) <= tol
 
 
-def test_v2_stream_decodes_without_pallas(monkeypatch):
-    """A v2-layout blob (BFP5 prepared cf stream + rem section) written via
-    the XLA oracle path must decompress through the public API on CPU."""
-    if jax.default_backend() == "tpu":
-        pytest.skip("CPU-only scenario")
-    monkeypatch.setattr(H, "_hybrid_v2_ok", lambda *a, **k: True)
-    monkeypatch.setattr(H, "_pick_v2_chunk", lambda *a, **k: C)
-    monkeypatch.setattr(Hy, "local_transform_fused_v2",
-                        lambda v, iq, nl, c: Hy.local_transform_v2_xla(
-                            v, iq, nl, c))
+def test_v2_long_last_axis_via_compress():
+    """Z=768: the chunk pick drops to C=8 (16*32 does not divide 768) and
+    the stream still rides flag 1 through the public API."""
+    shape = (16, 128, 768)
+    assert H._pick_v2_chunk(shape, mgard_tpu.Config()) == 8
+    v = np.asarray(_field(shape))
+    tol = 1e-3
+    blob, st = mgard_tpu.compress(v, tol=tol, s=np.inf)
+    assert int(st) == 0
+    assert _hybrid_flag(blob) == 1
+    out, st2 = mgard_tpu.decompress(blob)
+    assert int(st2) == 0
+    assert float(np.max(np.abs(out.astype(np.float64) - v))) <= tol
+
+
+def test_default_compress_writes_flag1():
+    """Nothing but the stream format gates v2: a default compress() of an
+    admitted 3D shape writes flag 1 on whatever backend runs it."""
+    shape = (64, 64, 128)
+    assert H._hybrid_v2_ok(shape, np.float32, mgard_tpu.Config())
+    v = np.asarray(_field(shape))
+    blob, st = mgard_tpu.compress(v, tol=1e-3)
+    assert int(st) == 0
+    assert _hybrid_flag(blob) == 1
+
+
+def test_v2_stream_decodes_through_public_api():
+    """A v2-layout blob (BFP5 prepared cf stream + rem section) written by
+    compress() decompresses through the public API within the bound."""
     # smallest shape satisfying the v2 stream invariant
     # (N % (SB_BLOCKS * 32) == 0): one full superblock
     v = np.asarray(_field((64, 64, 128)))
@@ -104,25 +145,18 @@ def test_v2_stream_decodes_without_pallas(monkeypatch):
     blob, st = mgard_tpu.compress(v, tol=tol, config=cfg)
     assert int(st) == 0
     # the v2 flag byte must actually be in the stream (not legacy fallback)
-    monkeypatch.undo()
+    assert _hybrid_flag(blob) == 1
     out, st2 = mgard_tpu.decompress(blob)
     assert int(st2) == 0
     err = float(np.max(np.abs(out.astype(np.float64) - v)))
     assert err <= tol, err
 
 
-def test_v2_stream_honors_tuned_superblock(monkeypatch):
+def test_v2_stream_honors_tuned_superblock():
     """An autotuned/explicit Config.bfp_sb_blocks must reach the v2 cf
     stream (sb rides in the blob header, so any admitted value decodes)."""
-    if jax.default_backend() == "tpu":
-        pytest.skip("CPU-only scenario")
     from mgard_tpu.lossless import bfp
 
-    monkeypatch.setattr(H, "_hybrid_v2_ok", lambda *a, **k: True)
-    monkeypatch.setattr(H, "_pick_v2_chunk", lambda *a, **k: C)
-    monkeypatch.setattr(Hy, "local_transform_fused_v2",
-                        lambda v, iq, nl, c: Hy.local_transform_v2_xla(
-                            v, iq, nl, c))
     v = np.asarray(_field((64, 64, 128)))
     cfg = mgard_tpu.Config()
     cfg.bfp_sb_blocks = 8192
@@ -130,79 +164,29 @@ def test_v2_stream_honors_tuned_superblock(monkeypatch):
     blob, st = mgard_tpu.compress(v, tol=tol, config=cfg)
     assert int(st) == 0
     # the cf stream's recorded superblock must be the tuned one
-    import struct as _s
-
+    assert _hybrid_flag(blob) == 1
     idx = bytes(blob).find(b"BFP5")
     assert idx >= 0
-    _m, _n, _rr, _K, _E, sb_rec, _C, _cnt = _s.unpack_from(bfp._HDR, blob, idx)
+    _m, _n, _rr, _K, _E, sb_rec, _C, _cnt = struct.unpack_from(bfp._HDR, blob,
+                                                               idx)
     assert sb_rec == 8192, sb_rec
-    monkeypatch.undo()
     out, st2 = mgard_tpu.decompress(blob)
     assert int(st2) == 0
     assert float(np.max(np.abs(out.astype(np.float64) - v))) <= tol
 
 
-def test_long_axis_tile_fallback_parity():
-    """Z=768: the doubling loop cannot reach a 128-wide middle tile inside
-    the base VMEM budget; _tile_shape_v2 must admit the (8, 128, Z) tile
-    (raised budget) and both v2 kernels must stay bit-exact against the
-    XLA oracles on it (the 768^3 production shape rides this tile)."""
-    shape = (8, 128, 768)
-    assert Hy._tile_shape_v2(shape) == (8, 128, 768)
-    C768 = 8  # 768 % (8*32) == 0; 16*32 does not divide 768
-    v = _field(shape)
-    q = jnp.float32(1.7e-4)
-    out = Hy.local_transform_fused_v2(v, 1.0 / q, NL, C768, interpret=True)
-    assert out is not None
-    pay_k, cw_k, rem_k = out
-    pay_o, cw_o, rem_o = Hy.local_transform_v2_xla(v, 1.0 / q, NL, C768)
-    # the integer permutation stages are bit-exact, but quantize is float:
-    # at this tile a handful of values land exactly on .5 rounding
-    # boundaries and fma-fusion variance between the kernel graph and the
-    # whole-array oracle graph flips them by ONE symbol (zigzag delta 2).
-    # Symbols are ground truth for decode, so the contract is: same
-    # layout, same widths, at most one-step flips on a trace fraction.
-    pk = np.asarray(pay_k).astype(np.int64)
-    po = np.asarray(pay_o).astype(np.int64)
-    mism = pk != po
-    assert mism.mean() < 1e-4, mism.mean()
-    assert np.abs(pk - po)[mism].max(initial=0) <= 2
-    np.testing.assert_array_equal(np.asarray(cw_k), np.asarray(cw_o))
-    np.testing.assert_allclose(np.asarray(rem_k), np.asarray(rem_o),
-                               rtol=0, atol=1e-6)
-    rem_hier = get_hierarchy(Hy.remainder_shape(shape, NL), np.float32, None,
-                             mgard_tpu.Config())
-    out_k = Hy.local_inverse_fused_v2(
-        pay_o, rem_o.reshape(rem_hier.shape), q, NL, jnp.float32,
-        interpret=True,
-    )
-    out_o = Hy.local_inverse_v2_xla(
-        pay_o, rem_o.reshape(rem_hier.shape), q, NL, jnp.float32
-    )
-    np.testing.assert_allclose(
-        np.asarray(out_k), np.asarray(out_o), rtol=0, atol=1e-6
-    )
-
-
-def test_stale_sticky_K_rechoose(monkeypatch):
+def test_stale_sticky_K_rechoose():
     """Compressing the same shape at a coarser then a FINER tolerance must
     keep the fast flag-1 format: the serializer re-chooses K from the
     fresh widths when the cached K undersizes them, instead of dropping
     to the legacy path (and it refreshes the cache)."""
-    if jax.default_backend() == "tpu":
-        pytest.skip("CPU-only scenario")
     from mgard_tpu.lossless import bfp as _bfp
 
-    monkeypatch.setattr(H, "_hybrid_v2_ok", lambda *a, **k: True)
-    monkeypatch.setattr(H, "_pick_v2_chunk", lambda *a, **k: C)
-    monkeypatch.setattr(Hy, "local_transform_fused_v2",
-                        lambda v, iq, nl, c: Hy.local_transform_v2_xla(
-                            v, iq, nl, c))
     shape = (16, 128, 256)
     v = np.asarray(_field(shape)).astype(np.float32)
     n_cf = int(np.prod(shape))
     E = 8
-    key = ("v2", n_cf, E, C, 0)
+    key = ("v2", n_cf, E, H._pick_v2_chunk(shape, mgard_tpu.Config()), 0)
     _bfp._K_CACHE.pop(key, None)
     b1, s1 = mgard_tpu.compress(v, tol=1e-2, s=np.inf,
                                 mode=mgard_tpu.error_bound_type.ABS)
@@ -215,10 +199,36 @@ def test_stale_sticky_K_rechoose(monkeypatch):
     assert int(s2) == 0
     K2 = _bfp._K_CACHE[key][0]
     assert K2 > K1, (K1, K2)  # cache refreshed for the finer widths
-    # both streams stay on the fast flag-1 format (BFP5 cf blob present)
-    assert b1.count(b"BFP5") >= 1 and b2.count(b"BFP5") >= 1
+    # both streams stay on the fast flag-1 format
+    assert _hybrid_flag(b1) == 1 and _hybrid_flag(b2) == 1
     for blob, tol in ((b1, 1e-2), (b2, 1e-4)):
         out, st = mgard_tpu.decompress(blob)
         assert int(st) == 0
         assert float(np.max(np.abs(out - v))) <= tol
     _bfp._K_CACHE.pop(key, None)
+
+
+def test_route_and_superblock_choice_ignore_backend(monkeypatch):
+    """The v2 gate and the BFP/BFX superblock picks depend on sizes and
+    the stream format alone, never on which backend JAX reports."""
+    import jax
+
+    from mgard_tpu.lossless import bfp, bfx
+
+    shapes = [(64, 64, 128), (16, 128, 768), (64, 64, 64), (512, 512, 512)]
+    sizes = [1000, bfx.SB_BLOCKS * 32, bfp.SB_BLOCKS * 32 - 1,
+             bfp.SB_BLOCKS * 32, 1 << 27]
+    seen = []
+    for backend in ("cpu", "gpu", "rocm"):
+        monkeypatch.setattr(jax, "default_backend", lambda b=backend: b)
+        cfg = mgard_tpu.Config()
+        seen.append((
+            [H._hybrid_v2_ok(s, np.float32, cfg) for s in shapes],
+            [bfp._choose_sb(n) for n in sizes],
+            [bfx._choose_sb(n) for n in sizes],
+        ))
+    assert seen[0] == seen[1] == seen[2]
+    gate, sb_p, sb_x = seen[0]
+    assert gate == [True, True, False, True]
+    assert sb_p == [bfp.SB_BLOCKS_SMALL] * 3 + [bfp.SB_BLOCKS] * 2
+    assert sb_x == [bfx.SB_BLOCKS_SMALL] + [bfx.SB_BLOCKS] * 4

@@ -1,27 +1,29 @@
-"""Fused v3 path (one kernel per direction): kernel/oracle parity, wire
-roundtrip, tile-major layout, CPU decode, and the public-API route.
+"""Hybrid front-end flag 2 (v3 streams): decode only.
 
-The v3 scheme ties each (8, 128, Z) transform tile to one BFP superblock
-(sb = 32*Z, sbc = 1024 chunks of C = Z/32 blocks) so the payload never
-round-trips HBM between the transform and the codec; the sort plan is
-recomputed in-kernel from the crl sidecar on both sides
-(hybrid.py `_v3_plan_kernel` == bfp.py `_sort_plan`)."""
+A v3 stream ties each (8, 128, Z) transform tile to one BFP superblock
+(sb = 32*Z, sbc = 1024 chunks of C = Z/32 blocks) with the residual bands
+in static slots and the chunks in tile-major order. This build writes no
+v3 streams; tests/golden/hybrid_v3_flag2_16x128x256_f32.mgard (written by
+the last encoder, at tol=1e-3 ABS, s=inf, from _field(GOLDEN_SHAPE,
+seed=9)) pins the decoder: wire round trip, public-API decode within the
+bound, and clean rejection of a corrupted geometry."""
+
+import os
+import struct
 
 import numpy as np
-import pytest
 
-import jax
 import jax.numpy as jnp
 
 import mgard_tpu
-import mgard_tpu.highlevel as H
 from mgard_tpu.lossless import bfp
 from mgard_tpu.ops import hybrid as Hy
 from mgard_tpu.utils.bytesink import join
 
 SHAPE = (16, 256, 256)
-NL = 3
-E = 8
+GOLDEN_SHAPE = (16, 128, 256)
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
+                      "hybrid_v3_flag2_16x128x256_f32.mgard")
 
 
 def _field(shape, seed=5):
@@ -36,11 +38,9 @@ def _field(shape, seed=5):
     return jnp.asarray(v)
 
 
-def _production_K(v, q):
-    C = SHAPE[2] // 32
-    _, cw0, _ = Hy.local_transform_v2_xla(v, 1.0 / q, NL, C)
-    hist = np.bincount(np.clip(np.asarray(cw0), 0, 32), minlength=33)
-    return bfp.choose_K(hist, E, C)
+def _golden() -> bytes:
+    with open(GOLDEN, "rb") as f:
+        return f.read()
 
 
 def _hybrid_flag(blob: bytes) -> int:
@@ -50,151 +50,60 @@ def _hybrid_flag(blob: bytes) -> int:
     return blob[i - 9]
 
 
-def _fitting_K(v, shape, tol, nl=NL, E_=E):
-    """Production-style K for the v3 C = Z/32 from the oracle widths,
-    clamped so the stream is exception-free (cw_max <= K + E)."""
-    import mgard_tpu.highlevel as _H
-    from mgard_tpu.hierarchy import get_hierarchy as _gh
-    from mgard_tpu.ops.hybrid import (hybrid_l_total, pad_to8,
-                                      remainder_shape)
-
-    padded = pad_to8(shape)
-    rem_hier = _gh(remainder_shape(padded, nl), np.float32, None,
-                   mgard_tpu.Config())
-    q = _H._hybrid_quantizer(tol, hybrid_l_total(padded, nl, rem_hier))
-    C_ = padded[-1] // 32
-    _, cw, _ = Hy.local_transform_v2_xla(jnp.asarray(v),
-                                         jnp.float32(1.0 / q), nl, C_)
-    cw_h = np.asarray(cw)
-    hist = np.bincount(np.clip(cw_h, 0, 32), minlength=33)
-    K = max(bfp.choose_K(hist, E_, C_), int(cw_h.max()) - E_)
-    assert K + E_ <= 16, (K, E_)
-    return K
-
-
-def test_v3_plan_matches_sort_plan():
-    """The in-kernel counting sort must be bit-identical to bfp._sort_plan
-    (decode recomputes the identical plan from the sidecar)."""
-    rng = np.random.default_rng(0)
-    sbc = 1024
-    crl = jnp.asarray(rng.integers(0, E + 1, (1, sbc)).astype(np.int32))
-    rank_ref, _cnt_ref = bfp._sort_plan(crl, E)
-
-    U = jnp.asarray(np.triu(np.ones((sbc, sbc), np.float32), 1), jnp.bfloat16)
-
-    class _URef:
-        def __getitem__(self, _):
-            return U
-
-    rank = Hy._v3_plan_kernel(crl, E, _URef())
-    np.testing.assert_array_equal(np.asarray(rank), np.asarray(rank_ref))
-
-
-def test_v3_kernels_match_oracle_and_roundtrip():
-    v = _field(SHAPE)
-    q = jnp.float32(1.7e-4)
-    K = _production_K(v, q)
-    base_o, resid_o, cw_o, rem_o = Hy.transform_pack_v3_xla(
-        v, 1.0 / q, NL, K, E
-    )
-    out = Hy.local_transform_pack_v3(v, 1.0 / q, NL, K, E, interpret=True)
-    assert out is not None
-    base_k, resid_k, cw_k, rem_k = out
-    # widths and the residual payload are bit-exact; base planes may differ
-    # at a trace fraction of one-symbol quantize flips (fma .5-boundary
-    # variance between the kernel graph and the whole-array oracle)
-    np.testing.assert_array_equal(np.asarray(cw_k), np.asarray(cw_o))
-    np.testing.assert_array_equal(np.asarray(resid_k), np.asarray(resid_o))
-    bm = (np.asarray(base_k) != np.asarray(base_o)).mean()
-    assert bm < 1e-3, bm
-    np.testing.assert_allclose(np.asarray(rem_k), np.asarray(rem_o),
-                               rtol=0, atol=1e-6)
-    crl = jnp.clip(cw_k - K, 0, E)
-    # fused inverse (interpret) inverts the fused forward exactly up to
-    # quantization
-    rec_k = Hy.unpack_inverse_v3(base_k, crl, resid_k, rem_k, q, NL, K, E,
-                                 jnp.float32, SHAPE, interpret=True)
-    err = float(jnp.max(jnp.abs(rec_k - v)))
-    assert err <= float(q) * (NL + 2), err
-    # XLA inverse decodes the KERNEL-written payload to the same field
-    rec_o = Hy.unpack_inverse_v3_xla(base_k, crl, resid_k, rem_k, q, NL,
-                                     K, E, jnp.float32, SHAPE)
-    np.testing.assert_allclose(np.asarray(rec_k), np.asarray(rec_o),
-                               rtol=0, atol=1e-6)
-
-
 def test_v3_wire_roundtrip_static_cap():
-    """serialize(static_cap) -> deserialize(static_cap) reproduces the
-    device arrays' decode exactly; wire bytes carry no row padding."""
-    v = _field(SHAPE)
-    q = jnp.float32(1.7e-4)
-    K = _production_K(v, q)
-    base, resid, cw, rem = Hy.transform_pack_v3_xla(v, 1.0 / q, NL, K, E)
-    crl_h = np.clip(np.asarray(cw).ravel() - K, 0, E).astype(np.int32)
-    Z = SHAPE[2]
-    C, sb = Z // 32, 32 * Z
-    n_cf = int(np.prod(SHAPE))
-    parts = bfp.serialize_prepared_parts(n_cf, K, E, sb, C, crl_h, base,
-                                         resid, 0, static_cap=True)
-    blob = join(parts)
-    wire_words = bfp.resid_wire_words(crl_h, E, C, sb)
-    assert len(blob) < wire_words * 4 + K * (n_cf // 32) * 4 + 4096 + len(crl_h)
-    b2, rl2, r2, (n2, K2, E2, sb2, C2), used = bfp.deserialize_prepared(
-        blob, 0, static_cap=True
+    """The golden's cf stream is plain BFP5 on the wire: expanded into the
+    v3 fixed-slot device layout (static_cap) or the banded layout, it
+    decodes to the same rows, and the banded layout re-serializes byte for
+    byte — the fixed slots carry no wire padding."""
+    blob = _golden()
+    assert _hybrid_flag(blob) == 2
+    i = blob.index(b"BFP5")
+    (cf_len,) = struct.unpack_from("<Q", blob, i - 8)
+    base, crl, rbuf, (n, K, E, sb, C), used = bfp.deserialize_prepared(
+        blob, i, static_cap=True
     )
-    assert (n2, K2, E2, sb2, C2) == (n_cf, K, E, sb, C)
-    np.testing.assert_array_equal(np.asarray(rl2), crl_h)
-    out = Hy.unpack_inverse_v3_xla(b2, rl2, r2[: resid.shape[0]], rem, q,
-                                   NL, K, E, jnp.float32, SHAPE)
-    ref = Hy.unpack_inverse_v3_xla(base, jnp.asarray(crl_h), resid, rem, q,
-                                   NL, K, E, jnp.float32, SHAPE)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
+    assert used == cf_len
+    Z = GOLDEN_SHAPE[2]
+    assert (n, sb, C) == (int(np.prod(GOLDEN_SHAPE)), 32 * Z, Z // 32)
+    base2, crl2, rbuf2, _, _ = bfp.deserialize_prepared(blob, i)
+    rows_static = bfp.decode_core_zz(base, crl, rbuf, K, E, sb, n // 32, C,
+                                     static_cap=True)
+    rows_banded = bfp.decode_core_zz(base2, crl2, rbuf2, K, E, sb, n // 32,
+                                     C)
+    np.testing.assert_array_equal(np.asarray(rows_static),
+                                  np.asarray(rows_banded))
+    crl_h = np.asarray(crl)
+    cnt = bfp._band_geometry(crl_h, E, C, sb)[0]
+    rows_used = int((-(-cnt // bfp.LANES) * C).sum())
+    parts = bfp.serialize_prepared_parts(n, K, E, sb, C, crl_h, base2,
+                                         rbuf2, rows_used)
+    assert join(parts) == blob[i : i + cf_len]
+    wire_words = bfp.resid_wire_words(crl_h, E, C, sb)
+    assert cf_len < wire_words * 4 + K * (n // 32) * 4 + 4096 + len(crl)
 
 
 def test_v3_tilemajor_order_helpers_invert():
+    """rows_tilemajor_field inverts the v3 chunk order: (8, 128) tiles of
+    leading positions in (gx, gy) order, row-major inside each tile."""
     rng = np.random.default_rng(3)
-    a = jnp.asarray(rng.integers(0, 1 << 16, SHAPE).astype(np.uint16))
-    rows = Hy.field_rows_tilemajor(a)
-    back = Hy.rows_tilemajor_field(rows, SHAPE)
-    np.testing.assert_array_equal(np.asarray(back), np.asarray(a))
+    a = rng.integers(0, 1 << 16, SHAPE).astype(np.uint16)
+    X, Y, Z = SHAPE
+    rows = [a[gx * 8 + i, gy * 128 + j]
+            for gx in range(X // 8) for gy in range(Y // 128)
+            for i in range(8) for j in range(128)]
+    back = Hy.rows_tilemajor_field(jnp.asarray(np.stack(rows)), SHAPE)
+    np.testing.assert_array_equal(np.asarray(back), a)
 
 
-def test_v3_stream_via_public_api_cpu(monkeypatch):
-    """A flag-2 stream written through compress() (XLA oracle stand-in for
-    the kernel on CPU) decodes through the public decompress() on a host
-    without the TPU Pallas backend, within the bound."""
-    if jax.default_backend() == "tpu":
-        pytest.skip("CPU-only scenario")
-    monkeypatch.setattr(H, "_hybrid_v3_ok", lambda *a, **k: True)
-    monkeypatch.setattr(Hy, "local_transform_pack_v3",
-                        lambda v, iq, nl, K, E:
-                        Hy.transform_pack_v3_xla(v, iq, nl, K, E))
-    shape = (16, 128, 256)
-    v = np.asarray(_field(shape, seed=9))
-    cfg = mgard_tpu.Config()
-    cfg.bfp_base_planes = _fitting_K(v, shape, 1e-3)
-    blob, st = mgard_tpu.compress(v, tol=1e-3, s=np.inf,
-                                  mode=mgard_tpu.error_bound_type.ABS,
-                                  config=cfg)
+def test_v3_stream_via_public_api_cpu():
+    """The flag-2 golden decodes through the public decompress() within
+    its bound."""
+    v = np.asarray(_field(GOLDEN_SHAPE, seed=9))
+    out, st = mgard_tpu.decompress(_golden())
     assert int(st) == 0
-    assert _hybrid_flag(blob) == 2  # genuinely the fused-v3 stream layout
-    out, st2 = mgard_tpu.decompress(blob)
-    assert int(st2) == 0
+    assert out.shape == GOLDEN_SHAPE and out.dtype == np.float32
     err = float(np.max(np.abs(out - v)))
     assert err <= 1e-3, err
-
-
-def test_v3_gate_requires_known_K():
-    cfg = mgard_tpu.Config()
-    cfg.bfp_base_planes = 0
-    bfp._K_CACHE.pop(("v2", int(np.prod(SHAPE)), E, SHAPE[2] // 32, 0), None)
-    K, _, _ = H._v3_params(cfg, SHAPE)
-    assert K is None
-    # sticky cache primes the gate
-    bfp._K_CACHE[("v2", int(np.prod(SHAPE)), E, SHAPE[2] // 32, 0)] = (5, None)
-    K2, _, _ = H._v3_params(cfg, SHAPE)
-    assert K2 == 5
-    bfp._K_CACHE.pop(("v2", int(np.prod(SHAPE)), E, SHAPE[2] // 32, 0), None)
 
 
 def test_v3_shape_gate():
@@ -207,33 +116,18 @@ def test_v3_shape_gate():
     assert not Hy.v3_ok_shape((8, 128, 1152))    # Z > 1024
 
 
-def test_v3_flag_rejects_bad_geometry(monkeypatch):
+def test_v3_flag_rejects_bad_geometry():
     """A flag-2 stream whose BFP5 header does not match the v3 tile=SB
     scheme must raise FormatError (clean rejection), not crash in a
     reshape."""
-    if jax.default_backend() == "tpu":
-        pytest.skip("CPU-only scenario")
-    monkeypatch.setattr(H, "_hybrid_v3_ok", lambda *a, **k: True)
-    monkeypatch.setattr(Hy, "local_transform_pack_v3",
-                        lambda v, iq, nl, K, E:
-                        Hy.transform_pack_v3_xla(v, iq, nl, K, E))
-    shape = (16, 128, 256)
-    v = np.asarray(_field(shape, seed=11))
-    cfg = mgard_tpu.Config()
-    cfg.bfp_base_planes = _fitting_K(v, shape, 1e-3)
-    blob, st = mgard_tpu.compress(v, tol=1e-3, s=np.inf,
-                                  mode=mgard_tpu.error_bound_type.ABS,
-                                  config=cfg)
-    assert int(st) == 0
+    blob = _golden()
     assert _hybrid_flag(blob) == 2
     # corrupt the BFP5 header's sb field (offset: magic4 + n8 + rows8 +
     # K1 + E1 -> sb u32); the v3 branch must reject sb != 32*Z
     # (Z=256 -> the correct sb IS 8192, so write a genuinely wrong value)
     i = blob.index(b"BFP5")
     bad = bytearray(blob)
-    import struct as S
-
-    S.pack_into("<I", bad, i + 22, 16384)
+    struct.pack_into("<I", bad, i + 22, 16384)
     out, st2 = mgard_tpu.decompress(bytes(bad))
     assert out is None and int(st2) != 0
 
@@ -277,24 +171,3 @@ def test_wire_minor_is_minimum_needed():
     body_off = len(M.MAGIC) + 8
     assert blob[body_off + 3] == M.FILE_VERSION[0]
     assert blob[body_off + 4] == 0
-
-
-def test_v3_params_falls_back_to_v2_chunk_key():
-    """For Z where v3's C = Z/32 differs from the v2 serializer's chunk
-    pick, the sticky-cache lookup must also try the v2 key (768: C=24 vs
-    C2=8) so v2 priming engages the fused path."""
-    padded = (768, 768, 768)
-    cfg = mgard_tpu.Config()
-    cfg.bfp_base_planes = 0
-    C = 768 // 32                      # 24 — v3's chunk size
-    C2 = H._pick_v2_chunk(padded, cfg)  # 8 — what v2 caches under
-    assert C2 != C
-    n_cf = int(np.prod(padded))
-    for key in [("v2", n_cf, E, C, 0), ("v2", n_cf, E, C2, 0)]:
-        bfp._K_CACHE.pop(key, None)
-    K, _, _ = H._v3_params(cfg, padded)
-    assert K is None
-    bfp._K_CACHE[("v2", n_cf, E, C2, 0)] = (6, None)
-    K2, _, _ = H._v3_params(cfg, padded)
-    assert K2 == 6
-    bfp._K_CACHE.pop(("v2", n_cf, E, C2, 0), None)

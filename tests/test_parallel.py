@@ -76,7 +76,7 @@ def test_sharded_indivisible_leading_dim(mesh):
 
 def test_sharded_float64_no_silent_cast(mesh):
     """f64 data compresses in f64: a tolerance far below f32 resolution must
-    hold (ADVICE r2: the f32 downcast silently violated the stated bound)."""
+    hold (the f32 downcast silently violated the stated bound)."""
     rng = np.random.default_rng(3)
     v = rng.standard_normal((8 * 4, 9, 9)).astype(np.float64)
     # far below f32 resolution on O(1) data (~2.4e-7 cast error) but well
@@ -152,7 +152,7 @@ def test_decompress_sharded_remainder_and_f64(mesh):
 
 def test_mdr_sharded_bfx_planes_roundtrip(mesh, monkeypatch):
     """The sharded refactor writer must support every plane codec the
-    readers do (r3 ADVICE #3): with mdr_level_compressor='bfx' the
+    readers do: with mdr_level_compressor='bfx' the
     BFX-coded planes must reconstruct through BOTH the sharded and the
     host (decomposed) reconstruct paths."""
     from mgard_tpu import Config

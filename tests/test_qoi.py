@@ -71,7 +71,7 @@ def test_mdr_qoi_device_check_survives_corrupted_tables():
     """The acceptance test runs on device against the actual reconstructed
     fields (reference: QoIKernel.hpp:22-147 inside ReconstructPipelineQoI's
     loop), so inflating the stored error tables 50x must still terminate
-    with a bound the true QoI error respects (r3 VERDICT #8)."""
+    with a bound the true QoI error respects."""
     shape = (33, 33)
     cfg = Config()
     cfg.total_num_bitplanes = 12
@@ -141,8 +141,7 @@ def test_multilevel_qoi_beats_holder():
 
 
 def test_qoi_finite_s_values():
-    """Arbitrary finite s through the multilevel Riesz bound (r2 VERDICT #9:
-    the reference handles any s via TensorQuantityOfInterest component
+    """Arbitrary finite s through the multilevel Riesz bound (the reference handles any s via TensorQuantityOfInterest component
     norms; here the bound comes from the exact recompose adjoint)."""
     import numpy as np
 

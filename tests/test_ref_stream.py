@@ -1,4 +1,4 @@
-"""Cross-decoding of reference MGARD-X streams (r3 VERDICT #6).
+"""Cross-decoding of reference MGARD-X streams.
 
 tests/golden/ref_blob_*.mgard are COMPLETE compressed files written by the
 reference library itself (MGARD-X SERIAL general_compress, lossless=LZ4)

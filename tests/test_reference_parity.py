@@ -1,4 +1,4 @@
-"""Cross-validation against MGARD-CPU golden vectors (VERDICT r2 #6).
+"""Cross-validation against MGARD-CPU golden vectors.
 
 tests/golden/ holds inputs, decomposed coefficients and achieved-error
 manifests produced by the REFERENCE library itself (mgard::compress /
@@ -100,7 +100,7 @@ _X_SHAPES = {
 )
 def test_3d_decomposition_matches_mgardx_serial(tag, variant):
     """3D coefficient parity against the reference MGARD-X SERIAL backend
-    at >= 65^3, ulp-class (r3 VERDICT #5): catches any wrong lerp weight or
+    at >= 65^3, ulp-class: catches any wrong lerp weight or
     correction stencil. Goldens from tests/golden/generate_x.sh run the
     reference's own MultiDimension decompose (reference:
     include/mgard-x/DataRefactoring/MultiDimension/DataRefactoring.hpp:24-178)
